@@ -1,0 +1,33 @@
+"""Minimal pytree helpers over nested dict / list / tuple / NamedTuple.
+
+The port's counterpart of the ``jax.tree`` calls in the JAX package: the
+parameter, optimizer and step-state trees keep the JAX package's nesting.
+Leaves are whatever is not a container (tensors, arrays, Python numbers).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` leaf-wise over trees of the same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> list:
+    """Leaves in ``tree_map`` order."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_unflatten(like: Any, leaves: list) -> Any:
+    """A tree shaped like ``like`` holding ``leaves`` (in ``tree_leaves`` order)."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)

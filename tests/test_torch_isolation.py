@@ -1,0 +1,92 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and it
+runs on the card unless the caller asks for the CPU."""
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import optim
+from repro_torch.configs.resnet_cifar import RESNET_MICRO
+from repro_torch.data.pipeline import ClientDataset
+from repro_torch.data.synthetic import ClassImageTask
+from repro_torch.fed.adapter import ResNetAdapter
+from repro_torch.fed.client import HeteroEnv, SimClient
+from repro_torch.fed.dtfl import DTFLTrainer
+from repro_torch.launch import train
+
+PKG = Path(repro_torch.__file__).parent
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages([str(PKG)], "repro_torch."))
+
+
+def test_imports_with_jax_and_repro_blocked():
+    """Every module of the port imports in a process where importing
+    ``jax`` or ``repro`` fails."""
+    mods = ["repro_torch", "repro_torch.fed.dtfl", "repro_torch.launch.train"] + _modules()
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import importlib\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
+        "               for k, v in sys.modules.items() if v is not None)\n"
+        "print('ok')\n"
+    )
+    src = str(PKG.parent)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={"PYTHONPATH": src, "PATH": "/usr/bin:/bin"}, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_no_source_imports_jax_or_repro():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) > 20
+    bad = [str(f) for f in files if pat.search(f.read_text())]
+    assert bad == []
+
+
+def _tiny_trainer_args():
+    task = ClassImageTask(n_classes=10, image_size=RESNET_MICRO.image_size)
+    labels = np.random.default_rng(0).integers(0, 10, 40)
+    clients = [SimClient(i, ClientDataset(task, labels, np.arange(20 * i, 20 * i + 20), 8), None)
+               for i in range(2)]
+    return ResNetAdapter(RESNET_MICRO), clients, HeteroEnv(2), optim.adam()
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """No device given and no CUDA device: the trainer and the CLI raise;
+    nothing falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DTFLTrainer(*_tiny_trainer_args())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "resnet-micro", "--clients", "2", "--rounds", "1",
+                    "--samples", "40"])
+    assert train.build_parser().parse_args([]).device == "cuda"
+    assert DTFLTrainer(*_tiny_trainer_args(), device="cpu").device.type == "cpu"
+
+
+def test_unported_options_fail_loudly():
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        ResNetAdapter(RESNET_MICRO, dcor_alpha=0.5)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        DTFLTrainer(*_tiny_trainer_args(), device="cpu", scheduler="pairing")
+    with pytest.raises(SystemExit):
+        train.build_parser().parse_args(["--arch", "smollm-360m"])
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        train.main(["--arch", "resnet-micro", "--clients", "2", "--samples", "40",
+                    "--codec", "topk0.05", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        DTFLTrainer(*_tiny_trainer_args(), device="cpu").run(1, {}, engine="events")
