@@ -184,15 +184,15 @@ cudaError_t launch(const void* x, void* out, void* amax, int64_t rows, int64_t n
 }  // namespace
 
 // x, out: (rows, n) contiguous, fp32 (is_bf16 = 0) or bf16 (is_bf16 = 1).
-// amax: (rows,) 4-byte scratch, zeroed by the caller. Launches on `stream`
-// of device `device` and does not synchronise. Returns a cudaError_t.
+// amax: (rows,) 4-byte scratch, zeroed by the caller. Launches the two
+// kernels on `stream`, which must belong to the calling thread's current
+// device, and does not synchronise. Returns a cudaError_t.
 extern "C" int int8_roundtrip_rows(const void* x, void* out, void* amax, long long rows,
-                                   long long n, int is_bf16, int device, void* stream) {
+                                   long long n, int is_bf16, void* stream) {
   if (rows <= 0 || n <= 0) return 0;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = is_bf16 ? launch<BF16>(x, out, amax, rows, n, st) : launch<F32>(x, out, amax, rows, n, st);
+  const cudaError_t err =
+      is_bf16 ? launch<BF16>(x, out, amax, rows, n, st) : launch<F32>(x, out, amax, rows, n, st);
   return static_cast<int>(err);
 }
 

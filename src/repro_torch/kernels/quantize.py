@@ -9,7 +9,9 @@ leaf) axis is the row axis of the kernel's input.
 bf16. A CUDA tensor goes to the hand-written kernel
 (``csrc/int8_roundtrip.cu``, built by ``nvcc`` at first use); a CPU tensor
 goes to the plain version ``kernels/ref.py::int8_roundtrip_ref``. Anything
-else raises. ``LAUNCHES`` counts the kernel's launches.
+else raises. ``LAUNCHES`` counts kernel launches on the device: two per
+call on a CUDA tensor (the row absmax, then the quantize/dequantize pass),
+besides the zero fill of the absmax buffer.
 """
 from __future__ import annotations
 
@@ -31,8 +33,7 @@ def load_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(nvcc.build("int8_roundtrip")))
         lib.int8_roundtrip_rows.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.int8_roundtrip_rows.restype = ctypes.c_int
         lib.int8_roundtrip_error.argtypes = [ctypes.c_int]
@@ -58,13 +59,14 @@ def int8_roundtrip_rows(x: torch.Tensor) -> torch.Tensor:
     if x.numel() == 0:
         return out
     lib = load_library()
-    amax = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.int8_roundtrip_rows(
-        x.data_ptr(), out.data_ptr(), amax.data_ptr(), x.shape[0], x.shape[1],
-        int(x.dtype == torch.bfloat16), x.device.index, stream)
+    with torch.cuda.device(x.device):
+        amax = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.int8_roundtrip_rows(
+            x.data_ptr(), out.data_ptr(), amax.data_ptr(), x.shape[0], x.shape[1],
+            int(x.dtype == torch.bfloat16), stream)
     if err != 0:
         msg = lib.int8_roundtrip_error(err).decode()
         raise RuntimeError(f"int8_roundtrip_rows launch failed: {msg} (cudaError {err})")
-    LAUNCHES += 1
+    LAUNCHES += 2  # absmax_rows, then qdq_rows
     return out

@@ -45,7 +45,7 @@ def test_int8_kernel_bit_equals_plain_on_card(cuda_device, shape, dtype):
     before = quantize.LAUNCHES
     got = quantize.int8_roundtrip_rows(x)
     torch.cuda.synchronize()
-    assert quantize.LAUNCHES == before + 1
+    assert quantize.LAUNCHES == before + 2  # the absmax pass and the quantize pass
     assert torch.equal(got, int8_roundtrip_ref(x))
     assert not got[0].any()
 
