@@ -9,22 +9,36 @@ Phases (any failure exits non-zero and prints no result line):
   1. device: require CUDA; print the card's name and power limit as
      ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
      gives them; turn TF32 off for matmuls and cuDNN.
-  2. build: compile every kernel of the main path from this checkout with
-     nvcc for sm_90a, and print the build time and ptxas report.
+  2. build: compile every kernel source from this checkout with nvcc for
+     sm_90a, one nvcc per source, all started together, and print the
+     build time and ptxas report.
   3. kernels: hold each kernel against its plain PyTorch version on the
-     card at the main path's shapes (bit equality for K1), and time the
-     kernel, the plain version and one PyTorch library call with CUDA
-     events, beside the bound from the card's memory rate.
+     card at the shapes its path gives it (bit equality for K1, stated
+     tolerances for K2); time K1, its plain version and one PyTorch
+     library call with CUDA events, beside the bound: the larger of the
+     bytes over the card's memory rate and the fp32 operations over its
+     fp32 rate.
   4. main path: ``repro_torch.launch.train.main`` — DTFL on full-width
      ResNet-56 (6 blocks per stage, width 16, 32 px, 8 modules, 7 tiers),
      10 clients, 2000 samples, batch 32, 3 rounds, the int8 wire codec,
      the dynamic scheduler, Adam 1e-3. Launch counts are zeroed just before
      and read after; every round must launch K1, and every parameter and
      aux head must stay finite and keep its shape.
-  5. small-input reference: the same CLI on ``resnet-micro`` runs on the
-     card and on the CPU (plain versions, held against the JAX package by
-     the CPU tests); clocks, tier assignments and uplink bytes must be
+  5. dcor run: the same entry point with Table 5's data and the
+     distance-correlation regularizer — full-width ResNet-56, cifar10-noisy,
+     5 IID clients, 1200 samples, batch 32, 3 rounds, ``--dcor-alpha 0.5``,
+     identity codec. K2 counts are zeroed just before and read after; every
+     round must launch the K2 forward and backward kernels.
+  6. small-input reference: the same CLI on the reduced ResNet-56 runs on
+     the card and on the CPU (plain versions, held against the JAX package
+     by the CPU tests), once with the int8 codec and once with
+     ``--dcor-alpha 0.5``; clocks, tier assignments and uplink bytes must be
      equal, parameters close.
+  7. K2 times, as K1's in phase 3 plus device time from CUDA-graph
+     replays, after the runs so the graphs' memory stays out of their peak;
+     then torch.profiler over K2's kernels (device time per kernel) and
+     over two rounds of the dcor run (device busy share, K2's share, the
+     top kernels), printed only.
 Then one JSON line of kernel measurements, the nvidia-smi line, and as the
 last line ``{"ok": true, "device": {...}}``.
 """
@@ -34,6 +48,8 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -65,12 +81,23 @@ def phase_device():
 
 def phase_build():
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import nvcc, quantize
+    from repro_torch.kernels import dcor, nvcc, quantize
 
+    names = ("int8_roundtrip", "pairwise_dist")
     t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(nvcc.build, names))
     quantize.load_library()
-    print(f"[build] int8_roundtrip: {time.perf_counter() - t0:.2f} s")
-    print(nvcc.library_path("int8_roundtrip").with_suffix(".log").read_text().strip())
+    dcor.load_library()
+    print(f"[build] {', '.join(names)} in parallel: {time.perf_counter() - t0:.2f} s")
+    for name in names:
+        print(nvcc.library_path(name).with_suffix(".log").read_text().strip())
+
+
+def _bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+    """The least time the card could take, in ms, and what bounds it."""
+    bytes_ms, ops_ms = 1e3 * bytes_moved / HBM_BYTES_PER_S, 1e3 * ops / FP32_OPS_PER_S
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
 def _cuda_ms(fn, x) -> float:
@@ -83,6 +110,33 @@ def _cuda_ms(fn, x) -> float:
     start.record()
     for _ in range(TIMED_ITERS):
         fn(x)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / TIMED_ITERS
+
+
+def _graph_ms(fn, x) -> float:
+    """Device time per call: TIMED_ITERS calls captured in one CUDA graph
+    and replayed, so the host's per-call work (Python, allocation, launch)
+    is left out. ``_cuda_ms`` times back-to-back calls, which a small
+    kernel finishes faster than the host can issue them."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(TIMED_ITERS):
+            fn(x)
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / TIMED_ITERS
@@ -132,7 +186,7 @@ def phase_kernels() -> dict:
         lambda t: torch.fake_quantize_per_channel_affine(t, scale, zero, 0, -127, 127), x)
     bytes_moved = 2 * 4 * rows * n + 4 * rows        # x read, out written, scales
     ops = 7 * rows * n                               # abs, max, div, rint, 2 clamps, mul
-    bytes_ms, ops_ms = 1e3 * bytes_moved / HBM_BYTES_PER_S, 1e3 * ops / FP32_OPS_PER_S
+    bound_ms, bound_by = _bound(bytes_moved, ops)
     entry = {
         "name": "int8_roundtrip",
         "route": "cuda",
@@ -142,14 +196,173 @@ def phase_kernels() -> dict:
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
         "library_ms": library_ms,
     }
     print(f"[kernels] int8_roundtrip at {tuple(x.shape)} fp32: kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
           f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']})")
     return entry
+
+
+def _dist_errors(got, want, x) -> tuple[float, float, float]:
+    """Hold K2's forward against its plain version (tolerances of
+    tests/test_torch_kernels.py): off the diagonal within rtol 1e-4; the
+    kernel's diagonal exactly sqrt(1e-12); the plain version's diagonal, its
+    rounding noise, within sqrt(4 gamma_F max sq). Returns the max |diff|,
+    the largest off-diagonal relative diff and the plain diagonal's max."""
+    import torch
+
+    from repro_torch.kernels.ref import D_MIN
+
+    eye = torch.eye(x.shape[1], dtype=torch.bool, device=x.device).expand_as(got)
+    rel = float(((got - want).abs() / want)[~eye].max()) if x.shape[1] > 1 else 0.0
+    u = 2.0 ** -24
+    gamma = x.shape[-1] * u / (1 - x.shape[-1] * u)
+    bound = max(4 * gamma * float((x.double() ** 2).sum(-1).max()) * (1 + 1e-6), 1e-12) ** 0.5
+    plain_diag = float(want.diagonal(dim1=1, dim2=2).max())
+    if rel > 1e-4:
+        fail(f"pairwise_dist off-diagonal relative error {rel} > 1e-4")
+    if not bool((got.diagonal(dim1=1, dim2=2) == D_MIN).all()):
+        fail("pairwise_dist diagonal is not exactly sqrt(1e-12)")
+    if plain_diag > bound:
+        fail(f"plain pairwise_dist diagonal {plain_diag} above its bound {bound}")
+    if not torch.equal(got, got.transpose(1, 2)):
+        fail("pairwise_dist is not exactly symmetric")
+    return float((got - want).abs().max()), rel, plain_diag
+
+
+def _grad_error(got, want, x, dist, g) -> float:
+    """Hold K2's backward against its plain version on the same (x, D, gD):
+    |diff| <= 4 gamma_B * 2 (rowsum|S| |x_i| + |S| |x|), the sums of B
+    terms taken in another order."""
+    import torch
+
+    from repro_torch.kernels.ref import D_MIN
+
+    eye = torch.eye(x.shape[1], dtype=torch.bool, device=x.device)
+    h = torch.where((dist > D_MIN) & ~eye, 0.5 * g / dist, torch.zeros_like(dist))
+    s = (h + h.transpose(1, 2)).abs()
+    scale = 2 * (s.sum(-1, keepdim=True) * x.abs() + torch.bmm(s, x.abs()))
+    u = 2.0 ** -24
+    gamma = x.shape[1] * u / (1 - x.shape[1] * u)
+    if not bool(torch.isfinite(got).all()):
+        fail("pairwise_dist backward gave non-finite values")
+    if not bool(((got - want).abs() <= 4 * gamma * scale + 1e-30).all()):
+        fail(f"pairwise_dist backward differs from its plain version: max |diff| "
+             f"{float((got - want).abs().max())}")
+    return float((got - want).abs().max())
+
+
+def phase_k2() -> tuple[float, float]:
+    """K2 forward and backward against their plain versions at the dcor
+    path's shapes (images 3,072; z of stage 1 up to 65,536), a ragged
+    shape, B = 1 and a batch of identical rows. Returns the largest
+    forward and backward |diff|."""
+    import torch
+
+    from repro_torch import privacy
+    from repro_torch.kernels import dcor
+    from repro_torch.kernels.ref import D_MIN, pairwise_dist_bwd_ref, pairwise_dist_ref
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    cases = [
+        ("z after stage 1, 5 clients", (5, 32, 65_536)),
+        ("z, 16,384", (5, 32, 16_384)),
+        ("images, 5 clients", (5, 32, 3_072)),
+        ("ragged", (3, 17, 1_001)),
+        ("B = 1", (2, 1, 100)),
+        ("identical rows", (2, 32, 3_072)),
+    ]
+    fwd_err = bwd_err = 0.0
+    for label, shape in cases:
+        x = torch.randn(shape, generator=g, device="cuda")
+        if label == "identical rows":
+            x = x[:, :1].expand(shape).contiguous()
+        got = dcor.dist_forward(x)
+        want = pairwise_dist_ref(x)
+        gd = torch.randn(got.shape, generator=g, device="cuda")
+        gx = dcor.dist_backward(x, got, gd)
+        gx_want = pairwise_dist_bwd_ref(x, got, gd)
+        torch.cuda.synchronize()
+        if label == "identical rows":
+            u = 2.0 ** -24
+            gamma = shape[2] * u / (1 - shape[2] * u)
+            bound = (4 * gamma * float((x.double() ** 2).sum(-1).max())) ** 0.5
+            if not bool((got == D_MIN).all()) or float(want.max()) > bound:
+                fail("identical rows: distances not at the clamp floor / within bound")
+            if gx.any() or gx_want.any():
+                fail("identical rows: the backward routed a gradient")
+            z = torch.randn(2, 32, 500, generator=g, device="cuda", requires_grad=True)
+            val = privacy.dcor(x, z)
+            (gz,) = torch.autograd.grad(val.sum(), z)
+            if not bool((val == 0).all()) or not bool(torch.isfinite(gz).all()):
+                fail("identical rows: dcor is not exactly 0 with a finite gradient")
+            err, rel, plain_diag = float((got - want).abs().max()), 0.0, float(want.max())
+        else:
+            err, rel, plain_diag = _dist_errors(got, want, x)
+        gerr = _grad_error(gx, gx_want, x, got, gd)
+        fwd_err, bwd_err = max(fwd_err, err), max(bwd_err, gerr)
+        print(f"[kernels] pairwise_dist {label} {shape}: forward max |diff| {err:.3g} "
+              f"(off-diagonal rel {rel:.3g}, plain diagonal max {plain_diag:.3g}), "
+              f"backward max |diff| {gerr:.3g}")
+    return fwd_err, bwd_err
+
+
+def phase_k2_times(fwd_err: float, bwd_err: float) -> list[dict]:
+    """K2's times at (5, 32, 65,536) and (5, 32, 3,072): CUDA events and
+    CUDA-graph device time for the kernels and plain versions, events for
+    the library yardsticks. Run after the training runs, so the graphs'
+    memory pools stay out of their peak memory."""
+    import torch
+
+    from repro_torch.kernels import dcor
+    from repro_torch.kernels.ref import pairwise_dist_bwd_ref, pairwise_dist_ref
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    entries = []
+    for shape in ((5, 32, 65_536), (5, 32, 3_072)):
+        C, B, F = shape
+        x = torch.randn(shape, generator=g, device="cuda")
+        dist = dcor.dist_forward(x)
+        gd = torch.randn(dist.shape, generator=g, device="cuda")
+        xr = x.clone().requires_grad_(True)
+        # yardsticks only (timed here, never called by the port): torch.cdist,
+        # and its forward + backward for the backward
+        fwd_fn = dcor.dist_forward
+        bwd_fn = partial(dcor.dist_backward, dist=dist, g_dist=gd)
+        fwd_plain = pairwise_dist_ref
+        bwd_plain = partial(pairwise_dist_bwd_ref, dist=dist, g_dist=gd)
+        fwd = {"ms": _cuda_ms(fwd_fn, x), "plain_ms": _cuda_ms(fwd_plain, x),
+               "library_ms": _cuda_ms(lambda t: torch.cdist(t, t), x),
+               "device_ms": _graph_ms(fwd_fn, x), "plain_device_ms": _graph_ms(fwd_plain, x)}
+        bwd = {"ms": _cuda_ms(bwd_fn, x), "plain_ms": _cuda_ms(bwd_plain, x),
+               "library_ms": _cuda_ms(
+                   lambda t: torch.autograd.grad(torch.cdist(t, t), t, gd), xr),
+               "device_ms": _graph_ms(bwd_fn, x), "plain_device_ms": _graph_ms(bwd_plain, x)}
+        gram_ops = 2 * C * B * B * F
+        fwd["bound_ms"], fwd["bound_by"] = _bound(4 * (C * B * F + C * B * B),
+                                                  gram_ops + 6 * C * B * B)
+        bwd["bound_ms"], bwd["bound_by"] = _bound(4 * (2 * C * B * F + 2 * C * B * B),
+                                                  gram_ops + 8 * C * B * B)
+        for name, t in (("forward", fwd), ("backward", bwd)):
+            print(f"[kernels] pairwise_dist {name} at {shape} fp32: kernel {t['ms']:.4f} ms "
+                  f"(device {t['device_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms "
+                  f"(device {t['plain_device_ms']:.4f} ms), library {t['library_ms']:.4f} ms, "
+                  f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+        if shape[2] == 65_536:
+            for name, t, err in (("forward", fwd, fwd_err), ("backward", bwd, bwd_err)):
+                entries.append({
+                    "name": f"pairwise_dist_{name}",
+                    "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/pairwise_dist.cu",
+                    "replaces": "src/repro/kernels/dcor.py:28",
+                    "launches": None,        # filled from the dcor run
+                    "max_abs_err": err,
+                    **t,
+                })
+    return entries
 
 
 def _check_trees_finite(trainer, shapes=None) -> dict:
@@ -211,7 +424,116 @@ def phase_main_path() -> int:
     return launches
 
 
-def phase_small_reference() -> None:
+def phase_dcor_run() -> tuple[int, int]:
+    """Table 5's data with the dcor regularizer at full width; every round
+    must launch the K2 forward and backward kernels."""
+    import torch
+
+    from repro_torch.kernels import dcor
+    from repro_torch.launch import train
+
+    argv = ["--arch", "resnet-56", "--full-size", "--dataset", "cifar10-noisy",
+            "--clients", "5", "--samples", "1200", "--iid", "--batch-size", "32",
+            "--rounds", "3", "--dcor-alpha", "0.5", "--scheduler", "dynamic",
+            "--lr", "1e-3", "--device", "cuda"]
+    rounds = []
+    shapes = {}
+
+    def on_round(trainer, log):
+        if not shapes:
+            shapes.update(_check_trees_finite(trainer))
+        else:
+            _check_trees_finite(trainer, shapes)
+        rounds.append((log, dict(dcor.LAUNCHES)))
+
+    torch.cuda.reset_peak_memory_stats()
+    dcor.LAUNCHES.update(forward=0, backward=0)
+    logs = train.main(argv, on_round=on_round)
+    launches = dict(dcor.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    if len(logs) != 3 or len(rounds) != 3:
+        fail(f"dcor run: expected 3 rounds, got {len(logs)}")
+    before = {"forward": 0, "backward": 0}
+    for log, count in rounds:
+        fwd, bwd = (count[k] - before[k] for k in ("forward", "backward"))
+        if fwd <= 0 or bwd <= 0:
+            fail(f"dcor run round {log.round} launched no K2 forward or backward kernel")
+        tiers = sorted(set(log.assignment.values()))
+        print(f"[dcor] round {log.round}: wall {log.wall_s:.3f} s, sim clock "
+              f"{log.clock:.4f} s, uplink_bytes {log.uplink_bytes:.0f}, tiers {tiers}, "
+              f"acc {log.acc:.4f}, K2 launches forward {fwd} backward {bwd}")
+        before = count
+    print(f"[dcor] peak device memory {peak / 2**30:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated), K2 launches forward "
+          f"{launches['forward']} backward {launches['backward']}")
+    return launches["forward"], launches["backward"]
+
+
+def _device_events(prof) -> list:
+    """The profiled device-side events (kernels, copies, sets) only: a host
+    op's own entry also carries its kernels' time and would count it twice.
+    A kernel launched through ctypes is traced like any other."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def _device_us(events, name: str) -> float:
+    """Device time in microseconds of the events whose name holds ``name``."""
+    return sum(e.self_device_time_total for e in events if name in e.key)
+
+
+def phase_profile() -> None:
+    """torch.profiler over K2's kernels and over one round of the dcor run:
+    device time per kernel, the round's device busy share and K2's part of
+    it, the top kernels. Only printed; a trace with no device time prints
+    "not measured"."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import dcor
+    from repro_torch.launch import train
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((5, 32, 65_536), generator=g, device="cuda")
+    dist = dcor.dist_forward(x)
+    gd = torch.randn(dist.shape, generator=g, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        for _ in range(TIMED_ITERS):
+            dcor.dist_forward(x)
+            dcor.dist_backward(x, dist, gd)
+        torch.cuda.synchronize()
+    events = _device_events(prof)
+    for name in ("gram_partial", "gram_finish", "dist_backward"):
+        us = _device_us(events, name) / TIMED_ITERS
+        print(f"[profile] K2 {name} at (5, 32, 65536): "
+              + (f"{us / 1e3:.4f} ms device time per call" if us else "not measured"))
+
+    argv = ["--arch", "resnet-56", "--full-size", "--dataset", "cifar10-noisy",
+            "--clients", "5", "--samples", "1200", "--iid", "--batch-size", "32",
+            "--rounds", "2", "--dcor-alpha", "0.5", "--scheduler", "dynamic",
+            "--lr", "1e-3", "--device", "cuda"]
+    walls = []
+    with profile(activities=acts) as prof:
+        train.main(argv, on_round=lambda trainer, log: walls.append(log.wall_s))
+    events = _device_events(prof)
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    if not busy:
+        print("[profile] dcor run: no device time in the trace (not measured)")
+        return
+    k2 = sum(_device_us(events, n) for n in ("gram_partial", "gram_finish", "dist_backward"))
+    wall = sum(walls)
+    print(f"[profile] dcor run, rounds 0-1 under the profiler: wall {wall:.3f} s, device "
+          f"busy {busy:.3f} s ({busy / wall:.1%} of wall), K2 {k2 / 1e6:.4f} s "
+          f"({k2 / 1e6 / busy:.2%} of device time)")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"[profile]   {e.self_device_time_total / 1e6:.4f} s  {e.count:6d} x  {e.key[:90]}")
+
+
+def phase_small_reference(extra: list[str], label: str) -> None:
     """The CLI at a tiny size on the card against the CPU's plain path."""
     import numpy as np
 
@@ -220,7 +542,7 @@ def phase_small_reference() -> None:
     from repro_torch.tree import tree_leaves
 
     argv = ["--arch", "resnet-56", "--clients", "4", "--samples", "200",
-            "--batch-size", "16", "--rounds", "3", "--codec", "int8"]
+            "--batch-size", "16", "--rounds", "3"] + extra
     runs = {}
     for device in ("cuda", "cpu"):
         got = {}
@@ -230,15 +552,17 @@ def phase_small_reference() -> None:
     (glogs, gtr), (clogs, ctr) = runs["cuda"], runs["cpu"]
     for a, b in zip(glogs, clogs):
         if (a.clock, a.assignment, a.uplink_bytes) != (b.clock, b.assignment, b.uplink_bytes):
-            fail(f"round {a.round}: clock/assignment/uplink differ between card and CPU")
+            fail(f"{label} round {a.round}: clock/assignment/uplink differ between "
+                 f"card and CPU")
     # the bounds of tests/test_torch_dtfl.py, in units of lr * local steps
     unit = 1e-3 * 3 * max(c.n_batches for c in ctr.clients)
     d = np.concatenate([
         np.abs(x - y).ravel() for x, y in zip(
             tree_leaves(to_numpy_tree(gtr.params)), tree_leaves(to_numpy_tree(ctr.params)))])
     if d.max() > 0.5 * unit or np.quantile(d, 0.99) > 0.1 * unit or np.median(d) > 0.01 * unit:
-        fail(f"card and CPU parameters differ: max {d.max()}, median {np.median(d)}")
-    print(f"[reference] card vs CPU, reduced resnet-56, 3 int8 rounds: logs equal, "
+        fail(f"{label}: card and CPU parameters differ: max {d.max()}, "
+             f"median {np.median(d)}")
+    print(f"[reference] card vs CPU, reduced resnet-56, 3 {label} rounds: logs equal, "
           f"parameter |diff| max {d.max():.3g} median {np.median(d):.3g}")
 
 
@@ -246,12 +570,19 @@ def main() -> None:
     smi = phase_device()
     phase_build()
     entry = phase_kernels()
-    entry["launches"] = phase_main_path()
-    phase_small_reference()
+    k2_err = phase_k2()
+    k1_launches = phase_main_path()
+    k2_launches = phase_dcor_run()
+    phase_small_reference(["--codec", "int8"], "int8")
+    phase_small_reference(["--dcor-alpha", "0.5"], "dcor")
+    entry["launches"] = k1_launches
+    k2_fwd, k2_bwd = phase_k2_times(*k2_err)
+    k2_fwd["launches"], k2_bwd["launches"] = k2_launches
+    phase_profile()
 
     import torch
 
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [entry, k2_fwd, k2_bwd]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,11 @@
 Provides global init, tier split/merge, the two DTFL local-loss objectives,
 eval, and the per-tier cost table used by the time simulator and the
 scheduler's profiling. Losses and activations carry the leading client
-axis: ``client_loss`` returns a (C,) loss per client. The dcor regularizer
-and patch shuffling come in a later slice.
+axis: ``client_loss`` returns a (C,) loss per client. ``dcor_alpha > 0``
+adds the §4.4 distance-correlation regularizer (``privacy.dcor``, on
+kernel K2); ``patch_shuffle`` shuffles the uploaded ``z`` only when a
+generator is passed, which the DTFL step does not do, as in the JAX
+package (``repro/fed/dtfl.py:133``).
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch import privacy
 from repro_torch.core import splitting, timemodel
 from repro_torch.core.local_loss import token_xent
 from repro_torch.models import resnet as R
@@ -33,10 +37,6 @@ class DTFLStepState(NamedTuple):
 class ResNetAdapter:
     def __init__(self, cfg, *, cost_cfg=None, dcor_alpha: float = 0.0,
                  patch_shuffle: bool = False):
-        if dcor_alpha > 0.0:
-            raise NotImplementedError("dcor_alpha > 0 is not yet ported")
-        if patch_shuffle:
-            raise NotImplementedError("patch_shuffle is not yet ported")
         self.cfg = cfg
         # time model may price the full-size model; tier count must match
         cost_cfg = cost_cfg or cfg
@@ -44,6 +44,8 @@ class ResNetAdapter:
             cost_cfg = dataclasses.replace(cost_cfg, n_modules=cfg.n_modules)
         self.cost_cfg = cost_cfg
         self.n_tiers = cfg.n_modules - 1
+        self.dcor_alpha = dcor_alpha
+        self.patch_shuffle = patch_shuffle
 
     def init_global(self, gen: torch.Generator) -> Params:
         return R.init(gen, self.cfg)
@@ -60,10 +62,22 @@ class ResNetAdapter:
         return R.aux_init(gen, self.cfg, tier + 1)
 
     # ---- losses (leading client axis) ----
-    def client_loss(self, cp: Params, ap: Params, batch: dict):
+    def client_loss(self, cp: Params, ap: Params, batch: dict,
+                    rng: torch.Generator | None = None):
         z = R.client_forward(cp, self.cfg, batch["images"])
+        if self.patch_shuffle and rng is not None:
+            zs = z.reshape(z.shape[0], z.shape[1], -1, z.shape[-1])
+            z_up = privacy.patch_shuffle(rng, zs, 16).reshape(z.shape)
+        else:
+            z_up = z
         logits = R.aux_apply(ap, z)
-        return token_xent(logits, batch["labels"], batch.get("mask")), z
+        loss = token_xent(logits, batch["labels"], batch.get("mask"))
+        if self.dcor_alpha > 0.0:
+            # dcor sees the un-shuffled z and the padded rows too, as in
+            # repro/fed/adapter.py:89-96
+            loss = (1 - self.dcor_alpha) * loss + self.dcor_alpha * privacy.dcor(
+                batch["images"], z)
+        return loss, z_up
 
     def server_loss(self, sp: Params, z: torch.Tensor, batch: dict, tier: int):
         logits = R.server_forward(sp, self.cfg, z, tier + 1)

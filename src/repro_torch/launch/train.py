@@ -10,7 +10,8 @@ on the card unless ``--device cpu``:
 
 Supported here: DTFL with the cohort plane and the rounds engine, ResNet
 archs, image datasets, schedulers ``dynamic`` or a fixed tier, codecs
-identity | bf16 | int8. Other archs and datasets fail at parse time,
+identity | bf16 | int8, and the distance-correlation regularizer
+(``--dcor-alpha``, on kernel K2). Other archs and datasets fail at parse time,
 other schedulers and codecs when the trainer is built, with "not yet
 ported".
 """
@@ -72,6 +73,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--switch-every", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dcor-alpha", type=float, default=0.0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     return ap
 
@@ -80,7 +82,7 @@ def build(args) -> tuple[DTFLTrainer, dict]:
     """Trainer and eval batch for parsed ``args``."""
     cfg_full = get_resnet(args.arch)
     cfg = cfg_full if args.full_size else cfg_full.reduced()
-    adapter = ResNetAdapter(cfg, cost_cfg=cfg_full)
+    adapter = ResNetAdapter(cfg, cost_cfg=cfg_full, dcor_alpha=args.dcor_alpha)
     n_classes, noise, task_seed = DATASETS[args.dataset]
     task = ClassImageTask(n_classes=n_classes, image_size=cfg.image_size,
                           noise=noise, seed=task_seed)

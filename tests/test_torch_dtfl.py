@@ -25,9 +25,15 @@ copied through the bridge.
     99th percentile 0.05 U, median 0.001 U. Bounds: max 0.5 U, 99th
     percentile 0.1 U, median 0.01 U — a wrong mask, weight or codec row
     moves the median by O(U).
+
+The second case adds ``--dcor-alpha 0.5``: the client loss carries the
+distance-correlation regularizer (kernel K2's plain versions here). The
+regularizer does not enter the time model, so the exact quantities are the
+same as without it; the parameters are held to the same bounds.
 """
 import jax
 import numpy as np
+import pytest
 import torch
 
 from repro.launch import train as jtrain
@@ -39,10 +45,14 @@ FLAGS = ["--arch", "resnet-56", "--clients", "4", "--rounds", "3",
          "--samples", "200", "--batch-size", "16", "--codec", "int8", "--lr", "1e-3"]
 
 
-def test_three_int8_rounds_match_jax():
-    fed = jtrain.spec_from_args(jtrain.build_parser().parse_args(FLAGS)).build()
+@pytest.mark.parametrize("dcor_alpha", ["0.0", "0.5"])
+def test_three_int8_rounds_match_jax(dcor_alpha):
+    flags = FLAGS + ["--dcor-alpha", dcor_alpha]
+    fed = jtrain.spec_from_args(jtrain.build_parser().parse_args(flags)).build()
     jt = fed.trainer
-    tt, eval_batch = ttrain.build(ttrain.build_parser().parse_args(FLAGS + ["--device", "cpu"]))
+    assert jt.adapter.dcor_alpha == float(dcor_alpha)
+    tt, eval_batch = ttrain.build(ttrain.build_parser().parse_args(flags + ["--device", "cpu"]))
+    assert tt.adapter.dcor_alpha == float(dcor_alpha)
     tt.params = from_numpy_tree(jax.tree.map(np.asarray, jt.params), "cpu")
     tt.aux = {m: from_numpy_tree(jax.tree.map(np.asarray, a), "cpu") for m, a in jt.aux.items()}
 

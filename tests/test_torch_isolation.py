@@ -79,8 +79,9 @@ def test_default_device_is_the_card(monkeypatch):
 
 
 def test_unported_options_fail_loudly():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ResNetAdapter(RESNET_MICRO, dcor_alpha=0.5)
+    # ported options build
+    ad = ResNetAdapter(RESNET_MICRO, dcor_alpha=0.5, patch_shuffle=True)
+    assert (ad.dcor_alpha, ad.patch_shuffle) == (0.5, True)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         DTFLTrainer(*_tiny_trainer_args(), device="cpu", scheduler="pairing")
     with pytest.raises(SystemExit):

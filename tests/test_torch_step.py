@@ -23,6 +23,17 @@ Tolerances, with their reasons:
     round trip with the same tolerances, and the two round-tripped ``z``
     may differ by one step (s = max|z| / 127 of that client) in at most
     1e-3 of their elements; elsewhere they differ by ulps of s.
+  * dcor_alpha 0.5 (the distance-correlation regularizer on the client
+    loss): the same tolerances, except where a gradient element is
+    sign-noise. The squared distances' diagonal is fp32 rounding noise on
+    both sides (exact 0 in exact arithmetic), and its square root moves the
+    dcor gradient: measured on this batch against a float64 evaluation with
+    an exact diagonal, the JAX gradient w.r.t. z is off by 1.6e-3 of its
+    largest magnitude and the port's CPU path (the same op order) by
+    1.2e-3, where an exact diagonal in fp32 is off by 1.2e-6
+    (``tests/test_torch_privacy.py`` has the kernel-form check). So an
+    element with |g| <= 2e-3 of its leaf's largest magnitude is noise-level
+    here and is allowed the full step difference.
 """
 import types
 
@@ -80,8 +91,9 @@ def _batch(n_clients=2, bs=8, n_real_last=5):
     return {"images": images, "labels": labels, "mask": mask}
 
 
-def _setup(codec):
-    jad, tad = JAdapter(CFG), TAdapter(CFG)
+def _setup(codec, dcor_alpha=0.0):
+    jad = JAdapter(CFG, dcor_alpha=dcor_alpha)
+    tad = TAdapter(CFG, dcor_alpha=dcor_alpha)
     params = jax.jit(jad.init_global)(jax.random.PRNGKey(0))
     aux = jax.jit(lambda k: jad.aux_init(k, TIER))(jax.random.PRNGKey(1))
     jc, js = jad.split(params, TIER)
@@ -99,10 +111,10 @@ def _setup(codec):
     return jad, tad, jstate, tstate, jstep, tstep
 
 
-def _assert_adam_step_close(got, want, before, grad):
+def _assert_adam_step_close(got, want, before, grad, grad_noise=1e-4):
     """Updated parameters, with the near-zero-gradient allowance above."""
     got, want, before, grad = (np.asarray(a) for a in (got, want, before, grad))
-    noisy = np.abs(grad) <= 1e-4 * max(float(np.abs(grad).max()), 1e-30)
+    noisy = np.abs(grad) <= grad_noise * max(float(np.abs(grad).max()), 1e-30)
     diff = np.abs(got - want)
     assert diff[~noisy].max(initial=0.0) <= 1e-7 + 1e-6 * np.abs(want[~noisy]).max(initial=0.0)
     assert diff[noisy].max(initial=0.0) <= 2 * LR * (1 + 1e-3)
@@ -127,9 +139,12 @@ def _jax_step_refs(jad, jstep, codec, jstate, jb):
     return _np(jax.jit(jax.vmap(one))(jstate, jb))
 
 
-@pytest.mark.parametrize("codec", ["identity", "int8"])
-def test_dtfl_step_matches_jax(codec):
-    jad, tad, jstate, tstate, jstep, tstep = _setup(codec)
+@pytest.mark.parametrize("codec,dcor_alpha", [
+    pytest.param("identity", 0.0, id="identity"), pytest.param("int8", 0.0, id="int8"),
+    pytest.param("identity", 0.5, id="identity-dcor0.5"),
+    pytest.param("int8", 0.5, id="int8-dcor0.5")])
+def test_dtfl_step_matches_jax(codec, dcor_alpha):
+    jad, tad, jstate, tstate, jstep, tstep = _setup(codec, dcor_alpha)
     batch = _batch()
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     jcl, jz, jg, jzr, jsg, (jnew, (jcl2, jsl)) = _jax_step_refs(
@@ -154,8 +169,9 @@ def test_dtfl_step_matches_jax(codec):
     tnew, (tcl2, tsl) = tstep(tstate, tb)
     _assert_close(tcl2.numpy(), jcl2)
     _assert_close(tsl.numpy(), jsl)
+    noise = 2e-3 if dcor_alpha > 0 else 1e-4
     for half, grads in (("client", jg[0]), ("aux", jg[1]), ("server", jsg)):
-        jax.tree.map(_assert_adam_step_close,
+        jax.tree.map(lambda *a: _assert_adam_step_close(*a, grad_noise=noise),
                      to_numpy_tree(getattr(tnew, half)), getattr(jnew, half),
                      _np(getattr(jstate, half)), grads)
     np.testing.assert_array_equal(tnew.c_opt["t"].numpy(), jnew.c_opt["t"])
