@@ -36,11 +36,31 @@ Phases (any failure exits non-zero and prints no result line):
      equal, parameters close.
   7. K2 times, as K1's in phase 3 plus device time from CUDA-graph
      replays, after the runs so the graphs' memory stays out of their peak;
-     then torch.profiler over K2's kernels (device time per kernel) and
-     over two rounds of the dcor run (device busy share, K2's share, the
-     top kernels), printed only.
-Then one JSON line of kernel measurements, the nvidia-smi line, and as the
-last line ``{"ok": true, "device": {...}}``.
+     K1's device time the same way; then torch.profiler over K2's kernels
+     (device time per kernel) and over two rounds of the dcor run (device
+     busy share, K2's share, the top kernels), printed only.
+  8. K3 and K4 (fused cross-entropy, flash attention), forward and
+     backward, against their plain versions on the card at the transformer
+     path's shapes and at ragged ones (the absolute tolerances of
+     tests/test_torch_kernels.py: K4 fp32 2e-5 forward and 1e-4 backward,
+     bf16 rtol 2e-2 with atol 1e-2; K3 loss 2e-4).
+  9. transformer run: the same entry point on full-width SmolLM-360M (32
+     layers, d_model 960, 15 query heads over 5 KV heads, d_ff 2560, vocab
+     49,152, 8 modules, 7 tiers; weights random from seed 0), 4 clients,
+     batch 4, sequence 512, 3 rounds, the token-LM task. K3 and K4 counts
+     are zeroed just before and read after; every round must launch the
+     forward and backward kernels of both, and every parameter and aux
+     head must stay finite and keep its shape.
+ 10. the reduced SmolLM-360M on the card and on the CPU, as phase 6.
+ 11. K3 and K4 times as K2's, beside the bound (bytes over the memory
+     rate, or bf16 products over the tensor-core rate) and one PyTorch
+     call each (``F.cross_entropy``, ``F.scaled_dot_product_attention``),
+     timed only; then torch.profiler over two rounds of the transformer
+     run (device busy share, K3's and K4's shares, the top kernels),
+     printed only.
+Then one JSON line of kernel measurements (K1, K2, K3 and K4, forward and
+backward), the nvidia-smi line, and as the last line
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -55,6 +75,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 TIMED_ITERS = 50
 
 
@@ -81,22 +102,23 @@ def phase_device():
 
 def phase_build():
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import dcor, nvcc, quantize
+    from repro_torch.kernels import dcor, flash_attention, fused_xent, nvcc, quantize
 
-    names = ("int8_roundtrip", "pairwise_dist")
+    names = ("int8_roundtrip", "pairwise_dist", "fused_xent", "flash_attention")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(nvcc.build, names))
-    quantize.load_library()
-    dcor.load_library()
+    for mod in (quantize, dcor, fused_xent, flash_attention):
+        mod.load_library()
     print(f"[build] {', '.join(names)} in parallel: {time.perf_counter() - t0:.2f} s")
     for name in names:
         print(nvcc.library_path(name).with_suffix(".log").read_text().strip())
 
 
-def _bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+def _bound(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S
+           ) -> tuple[float, str]:
     """The least time the card could take, in ms, and what bounds it."""
-    bytes_ms, ops_ms = 1e3 * bytes_moved / HBM_BYTES_PER_S, 1e3 * ops / FP32_OPS_PER_S
+    bytes_ms, ops_ms = 1e3 * bytes_moved / HBM_BYTES_PER_S, 1e3 * ops / ops_per_s
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
@@ -533,7 +555,13 @@ def phase_profile() -> None:
         print(f"[profile]   {e.self_device_time_total / 1e6:.4f} s  {e.count:6d} x  {e.key[:90]}")
 
 
-def phase_small_reference(extra: list[str], label: str) -> None:
+RESNET_SMALL = ["--arch", "resnet-56", "--clients", "4", "--samples", "200",
+                "--batch-size", "16", "--rounds", "3"]
+SMOLLM_SMALL = ["--arch", "smollm-360m", "--clients", "4", "--batch-size", "4",
+                "--seq-len", "64", "--rounds", "3"]
+
+
+def phase_small_reference(argv: list[str], label: str) -> None:
     """The CLI at a tiny size on the card against the CPU's plain path."""
     import numpy as np
 
@@ -541,8 +569,6 @@ def phase_small_reference(extra: list[str], label: str) -> None:
     from repro_torch.launch import train
     from repro_torch.tree import tree_leaves
 
-    argv = ["--arch", "resnet-56", "--clients", "4", "--samples", "200",
-            "--batch-size", "16", "--rounds", "3"] + extra
     runs = {}
     for device in ("cuda", "cpu"):
         got = {}
@@ -560,29 +586,348 @@ def phase_small_reference(extra: list[str], label: str) -> None:
         np.abs(x - y).ravel() for x, y in zip(
             tree_leaves(to_numpy_tree(gtr.params)), tree_leaves(to_numpy_tree(ctr.params)))])
     if d.max() > 0.5 * unit or np.quantile(d, 0.99) > 0.1 * unit or np.median(d) > 0.01 * unit:
-        fail(f"{label}: card and CPU parameters differ: max {d.max()}, "
-             f"median {np.median(d)}")
-    print(f"[reference] card vs CPU, reduced resnet-56, 3 {label} rounds: logs equal, "
-          f"parameter |diff| max {d.max():.3g} median {np.median(d):.3g}")
+        fail(f"{label}: card and CPU parameters differ: max {d.max() / unit} U, "
+             f"99th percentile {np.quantile(d, 0.99) / unit} U, median {np.median(d) / unit} U")
+    print(f"[reference] card vs CPU, reduced {argv[1]}, 3 {label} rounds: logs equal, "
+          f"parameter |diff| max {d.max():.3g} ({d.max() / unit:.3g} U) median "
+          f"{np.median(d):.3g} ({np.median(d) / unit:.3g} U), 99th percentile "
+          f"{np.quantile(d, 0.99) / unit:.3g} U")
+
+
+def phase_k1_device_time(entry: dict) -> None:
+    """K1's device time (CUDA-graph replays) at the z shape, after the runs
+    so the graph's memory stays out of their peak."""
+    import torch
+
+    from repro_torch.kernels import quantize
+    from repro_torch.kernels.ref import int8_roundtrip_ref
+
+    x = torch.randn((10, 2_097_152), generator=torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda")
+    entry["device_ms"] = _graph_ms(quantize.int8_roundtrip_rows, x)
+    entry["plain_device_ms"] = _graph_ms(int8_roundtrip_ref, x)
+    print(f"[kernels] int8_roundtrip at {tuple(x.shape)} fp32: device {entry['device_ms']:.4f} ms, "
+          f"plain device {entry['plain_device_ms']:.4f} ms")
+
+
+# K4 cases: (N, S, H, KV, hd, causal, window, dtype); the first two are the
+# path's (16 sequences of 512 tokens, 15 query heads over 5 KV heads, hd 64)
+ATTN_CASES = [
+    ("path, bf16", 16, 512, 15, 5, 64, True, 0, "bfloat16"),
+    ("path, fp32", 16, 512, 15, 5, 64, True, 0, "float32"),
+    ("window 128", 4, 512, 15, 5, 64, True, 128, "bfloat16"),
+    ("ragged S = 200", 3, 200, 6, 2, 64, True, 0, "float32"),
+    ("G = 1", 3, 200, 4, 4, 64, True, 0, "float32"),
+    ("reduced model, hd 32", 16, 64, 4, 4, 32, True, 0, "bfloat16"),
+]
+# K3 cases: (T, V, dtype): the path's heads, the ResNet's classifier, ragged
+XENT_CASES = [
+    ("path heads", 8_192, 49_152, "bfloat16"),
+    ("ResNet classifier", 320, 10, "float32"),
+    ("ragged", 1_000, 50_001, "bfloat16"),
+]
+
+
+def _close(got, want, rtol: float, atol: float) -> tuple[bool, float]:
+    """|got - want| <= atol + rtol |want| everywhere, as torch.allclose
+    (atol absolute, not scaled by the data); and the max |diff|."""
+    want = want.float()
+    diff = (got.float() - want).abs()
+    return bool((diff <= atol + rtol * want.abs()).all()), float(diff.max())
+
+
+def phase_k3_k4() -> dict:
+    """K3 and K4, forward and backward, against their plain versions on the
+    same inputs (the tolerances of tests/test_torch_kernels.py). Returns
+    the largest |diff| of each of the four kernels."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_xent as fx
+    from repro_torch.kernels.ref import (attention_bwd_ref, attention_ref, fused_xent_bwd_ref,
+                                         fused_xent_ref)
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    err = {"flash_attention_forward": 0.0, "flash_attention_backward": 0.0,
+           "fused_xent_forward": 0.0, "fused_xent_backward": 0.0}
+    for label, N, S, H, KV, hd, causal, window, dt in ATTN_CASES:
+        dtype = getattr(torch, dt)
+        q = torch.randn(N, S, H, hd, generator=g, device="cuda").to(dtype)
+        k = torch.randn(N, S, KV, hd, generator=g, device="cuda").to(dtype)
+        v = torch.randn(N, S, KV, hd, generator=g, device="cuda").to(dtype)
+        do = torch.randn(N, S, H, hd, generator=g, device="cuda").to(dtype)
+        o, lse = fa.attn_forward(q, k, v, causal=causal, window=window)
+        grads = fa.attn_backward(q, k, v, o, lse, do, causal=causal, window=window)
+        torch.cuda.synchronize()
+        o_want, lse_want = attention_ref(q, k, v, causal=causal, window=window)
+        want = attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window)
+        # (rtol, atol): fp32 as tests/test_kernels.py:27; bf16 measured at
+        # 4e-3 (forward) and 2e-3 (backward) on the H100, so 1e-2 absolute
+        # leaves room and still catches a bf16 fault of a typical output's size
+        fwd_tol, bwd_tol = (((2e-5, 2e-5), (1e-4, 1e-4)) if dtype == torch.float32
+                            else ((2e-2, 1e-2), (2e-2, 1e-2)))
+        ok, fwd = _close(o, o_want, *fwd_tol)
+        if not ok or not torch.allclose(lse, lse_want, atol=1e-5, rtol=1e-5):
+            fail(f"flash_attention forward differs from its plain version on {label}: "
+                 f"max |diff| {fwd}")
+        bwd = 0.0
+        for name, a, b in zip(("dq", "dk", "dv"), grads, want):
+            ok, d = _close(a, b, *bwd_tol)
+            bwd = max(bwd, d)
+            if not ok:
+                fail(f"flash_attention backward {name} differs from its plain version on "
+                     f"{label}: max |diff| {d}")
+        err["flash_attention_forward"] = max(err["flash_attention_forward"], fwd)
+        err["flash_attention_backward"] = max(err["flash_attention_backward"], bwd)
+        print(f"[kernels] flash_attention {label} {(N, S, H, KV, hd)} {dt} causal={causal} "
+              f"window={window}: forward max |diff| {fwd:.3g}, backward max |diff| {bwd:.3g}")
+    for label, T, V, dt in XENT_CASES:
+        dtype = getattr(torch, dt)
+        logits = (3 * torch.randn(T, V, generator=g, device="cuda")).to(dtype)
+        labels = torch.randint(0, V, (T,), generator=g, device="cuda")
+        gt = torch.randn(T, generator=g, device="cuda")
+        loss, lse = fx.xent_forward(logits, labels)
+        grad = fx.xent_backward(logits, labels, lse, gt)
+        torch.cuda.synchronize()
+        loss_want, lse_want = fused_xent_ref(logits, labels)
+        fwd = float((loss - loss_want).abs().max())
+        if fwd > 2e-4 or float((lse - lse_want).abs().max()) > 2e-4:
+            fail(f"fused_xent forward differs from its plain version on {label}: {fwd}")
+        ok, bwd = _close(grad, fused_xent_bwd_ref(logits, labels, lse, gt),
+                         1e-5 if dtype == torch.float32 else 1e-2, 1e-6)
+        if not ok or grad.dtype != dtype:
+            fail(f"fused_xent backward differs from its plain version on {label}: {bwd}")
+        err["fused_xent_forward"] = max(err["fused_xent_forward"], fwd)
+        err["fused_xent_backward"] = max(err["fused_xent_backward"], bwd)
+        print(f"[kernels] fused_xent {label} {(T, V)} {dt}: loss max |diff| {fwd:.3g}, "
+              f"gradient max |diff| {bwd:.3g}")
+    return err
+
+
+TRANSFORMER_ARGV = ["--arch", "smollm-360m", "--full-size", "--clients", "4",
+                    "--batch-size", "4", "--seq-len", "512", "--scheduler", "dynamic",
+                    "--lr", "1e-3", "--device", "cuda"]
+
+
+def _k3_k4_counts() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_xent as fx
+
+    return {"fused_xent_forward": fx.LAUNCHES["forward"],
+            "fused_xent_backward": fx.LAUNCHES["backward"],
+            "flash_attention_forward": fa.LAUNCHES["forward"],
+            "flash_attention_backward": fa.LAUNCHES["backward"]}
+
+
+def phase_transformer_run() -> dict:
+    """DTFL on full-width SmolLM-360M; every round must launch K3 and K4,
+    forward and backward."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_xent as fx
+    from repro_torch.launch import train
+
+    rounds = []
+    shapes = {}
+
+    def on_round(trainer, log):
+        if not shapes:
+            shapes.update(_check_trees_finite(trainer))
+        else:
+            _check_trees_finite(trainer, shapes)
+        rounds.append((log, _k3_k4_counts()))
+
+    counters = ("num_alloc_retries", "num_device_alloc", "num_device_free")
+    stats0 = torch.cuda.memory_stats()
+    reserved0 = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    fx.LAUNCHES.update(forward=0, backward=0)
+    fa.LAUNCHES.update(forward=0, backward=0)
+    logs = train.main(TRANSFORMER_ARGV + ["--rounds", "3"], on_round=on_round)
+    launches = _k3_k4_counts()
+    peak = torch.cuda.max_memory_allocated()
+    stats = torch.cuda.memory_stats()
+
+    if len(logs) != 3 or len(rounds) != 3:
+        fail(f"transformer run: expected 3 rounds, got {len(logs)}")
+    before = dict.fromkeys(launches, 0)
+    for log, count in rounds:
+        got = {k: count[k] - before[k] for k in count}
+        if min(got.values()) <= 0:
+            fail(f"transformer run round {log.round} launched no kernel of {got}")
+        tiers = sorted(set(log.assignment.values()))
+        print(f"[transformer] round {log.round}: wall {log.wall_s:.3f} s, sim clock "
+              f"{log.clock:.4f} s, uplink_bytes {log.uplink_bytes:.0f}, tiers {tiers}, "
+              f"acc {log.acc:.4f}, launches K3 forward {got['fused_xent_forward']} backward "
+              f"{got['fused_xent_backward']}, K4 forward {got['flash_attention_forward']} "
+              f"backward {got['flash_attention_backward']}")
+        before = count
+    print(f"[transformer] peak device memory {peak / 2**30:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated), launches {launches}")
+    # the caching allocator over the run: what it held before, and how often
+    # it called cudaMalloc / cudaFree or retried after freeing its cache
+    print(f"[transformer] allocator: {reserved0 / 2**30:.3f} GiB reserved before the run; "
+          + ", ".join(f"{k} {stats.get(k, 0) - stats0.get(k, 0)}" for k in counters))
+    return launches
+
+
+def phase_k3_k4_times(err: dict) -> list[dict]:
+    """K3 and K4 times at the path's shapes: CUDA events and CUDA-graph
+    device time for the kernels and plain versions, events for the library
+    yardsticks (timed here, never called by the port)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_xent as fx
+    from repro_torch.kernels.ref import (attention_bwd_ref, attention_ref, fused_xent_bwd_ref,
+                                         fused_xent_ref)
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    entries = []
+
+    # K4 at the path's shape: 16 sequences x 15 heads, S = 512, hd 64, causal, bf16
+    N, S, H, KV, hd = 16, 512, 15, 5, 64
+    q = torch.randn(N, S, H, hd, generator=g, device="cuda").bfloat16()
+    k = torch.randn(N, S, KV, hd, generator=g, device="cuda").bfloat16()
+    v = torch.randn(N, S, KV, hd, generator=g, device="cuda").bfloat16()
+    do = torch.randn(N, S, H, hd, generator=g, device="cuda").bfloat16()
+    o, lse = fa.attn_forward(q, k, v, causal=True)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))     # SDPA's (N, H, S, hd)
+    qr, kr, vr = (t.clone().requires_grad_(True) for t in (qt, kt, vt))
+    sdpa = partial(F.scaled_dot_product_attention, is_causal=True, enable_gqa=True)
+    fwd_fn = partial(fa.attn_forward, k=k, v=v, causal=True)
+    bwd_fn = partial(fa.attn_backward, k=k, v=v, o=o, lse=lse, do=do, causal=True)
+    fwd_plain = partial(attention_ref, k=k, v=v, causal=True)
+    bwd_plain = partial(attention_bwd_ref, k=k, v=v, o=o, lse=lse, do=do, causal=True)
+    dot = do.transpose(1, 2)
+    attn = {
+        "forward": {"ms": _cuda_ms(fwd_fn, q), "device_ms": _graph_ms(fwd_fn, q),
+                    "plain_ms": _cuda_ms(fwd_plain, q), "plain_device_ms": _graph_ms(fwd_plain, q),
+                    "library_ms": _cuda_ms(lambda t: sdpa(t, kt, vt), qt)},
+        "backward": {"ms": _cuda_ms(bwd_fn, q), "device_ms": _graph_ms(bwd_fn, q),
+                     "plain_ms": _cuda_ms(bwd_plain, q),
+                     "plain_device_ms": _graph_ms(bwd_plain, q),
+                     "library_ms": _cuda_ms(lambda t: torch.autograd.grad(
+                         sdpa(t, kr, vr), (t, kr, vr), dot), qr)},
+    }
+    pairs = N * H * S * (S + 1) // 2                 # causal (query, key) pairs
+    q_bytes, kv_bytes, lse_bytes = 2 * N * S * H * hd, 2 * N * S * KV * hd, 4 * N * H * S
+    attn["forward"]["bound_ms"], attn["forward"]["bound_by"] = _bound(
+        2 * q_bytes + 2 * kv_bytes + lse_bytes, 2 * 2 * pairs * hd, BF16_OPS_PER_S)
+    attn["backward"]["bound_ms"], attn["backward"]["bound_by"] = _bound(
+        4 * q_bytes + 4 * kv_bytes + lse_bytes, 5 * 2 * pairs * hd, BF16_OPS_PER_S)
+
+    # K3 at the heads' shape: 4 clients x 4 sequences x 512 tokens, vocab 49,152, bf16
+    T, V = 8_192, 49_152
+    logits = (3 * torch.randn(T, V, generator=g, device="cuda")).bfloat16()
+    labels = torch.randint(0, V, (T,), generator=g, device="cuda")
+    gt = torch.randn(T, generator=g, device="cuda")
+    _, xlse = fx.xent_forward(logits, labels)
+    lr = logits.clone().requires_grad_(True)
+    xfwd = partial(fx.xent_forward, labels=labels)
+    xbwd = partial(fx.xent_backward, labels=labels, lse=xlse, g=gt)
+    xfwd_plain = partial(fused_xent_ref, labels=labels)
+    xbwd_plain = partial(fused_xent_bwd_ref, labels=labels, lse=xlse, g=gt)
+    xent = {
+        "forward": {"ms": _cuda_ms(xfwd, logits), "device_ms": _graph_ms(xfwd, logits),
+                    "plain_ms": _cuda_ms(xfwd_plain, logits),
+                    "plain_device_ms": _graph_ms(xfwd_plain, logits),
+                    "library_ms": _cuda_ms(lambda t: F.cross_entropy(t, labels, reduction="none"),
+                                           logits)},
+        "backward": {"ms": _cuda_ms(xbwd, logits), "device_ms": _graph_ms(xbwd, logits),
+                     "plain_ms": _cuda_ms(xbwd_plain, logits),
+                     "plain_device_ms": _graph_ms(xbwd_plain, logits),
+                     "library_ms": _cuda_ms(lambda t: torch.autograd.grad(
+                         F.cross_entropy(t, labels, reduction="none"), t, gt), lr)},
+    }
+    xent["forward"]["bound_ms"], xent["forward"]["bound_by"] = _bound(
+        2 * T * V + 8 * T + 8 * T, 3 * T * V)
+    xent["backward"]["bound_ms"], xent["backward"]["bound_by"] = _bound(
+        2 * 2 * T * V + 8 * T + 8 * T, 4 * T * V)
+
+    for name, times, src, replaces, shape in (
+            ("flash_attention", attn, "flash_attention.cu", "flash_attention.py:75",
+             "(16, 512, 15/5, 64) bf16 causal"),
+            ("fused_xent", xent, "fused_xent.cu", "fused_xent.py:62", "(8192, 49152) bf16")):
+        for direction in ("forward", "backward"):
+            t = times[direction]
+            print(f"[kernels] {name} {direction} at {shape}: kernel {t['ms']:.4f} ms (device "
+                  f"{t['device_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms (device "
+                  f"{t['plain_device_ms']:.4f} ms), library {t['library_ms']:.4f} ms, bound "
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+            entries.append({
+                "name": f"{name}_{direction}",
+                "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{src}",
+                "replaces": f"src/repro/kernels/{replaces}",
+                "launches": None,        # filled from the transformer run
+                "max_abs_err": err[f"{name}_{direction}"],
+                **t,
+            })
+    return entries
+
+
+def phase_transformer_profile() -> None:
+    """torch.profiler over two rounds of the transformer run: the device busy
+    share, K3's and K4's shares, the top kernels. Printed only."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import train
+
+    # the trainer (and its initial weights' copy to the card) outside the trace
+    trainer, eval_batch = train.build(train.build_parser().parse_args(TRANSFORMER_ARGV))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        logs = trainer.run(2, eval_batch)
+    walls = [log.wall_s for log in logs]
+    events = _device_events(prof)
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    if not busy:
+        print("[profile] transformer run: no device time in the trace (not measured)")
+        return
+    k3 = sum(_device_us(events, n) for n in ("xent_fwd", "xent_bwd")) / 1e6
+    k4 = sum(_device_us(events, n) for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")) / 1e6
+    wall = sum(walls)
+    print(f"[profile] transformer run, rounds 0-1 under the profiler: wall {wall:.3f} s, "
+          f"device busy {busy:.3f} s ({busy / wall:.1%} of wall), K3 {k3:.4f} s "
+          f"({k3 / busy:.2%} of device time), K4 {k4:.4f} s ({k4 / busy:.2%})")
+    for name in ("xent_fwd", "xent_bwd", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"):
+        n = sum(e.count for e in events if name in e.key)
+        us = _device_us(events, name)
+        print(f"[profile]   {name}: {n} calls, {us / 1e6:.4f} s"
+              + (f", {us / n / 1e3:.4f} ms per call" if n else ""))
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"[profile]   {e.self_device_time_total / 1e6:.4f} s  {e.count:6d} x  {e.key[:90]}")
 
 
 def main() -> None:
+    t0 = time.perf_counter()
     smi = phase_device()
     phase_build()
     entry = phase_kernels()
     k2_err = phase_k2()
+    k34_err = phase_k3_k4()
     k1_launches = phase_main_path()
     k2_launches = phase_dcor_run()
-    phase_small_reference(["--codec", "int8"], "int8")
-    phase_small_reference(["--dcor-alpha", "0.5"], "dcor")
+    k34_launches = phase_transformer_run()
+    phase_small_reference(RESNET_SMALL + ["--codec", "int8"], "int8")
+    phase_small_reference(RESNET_SMALL + ["--dcor-alpha", "0.5"], "dcor")
+    phase_small_reference(SMOLLM_SMALL, "token-LM")
     entry["launches"] = k1_launches
+    phase_k1_device_time(entry)
     k2_fwd, k2_bwd = phase_k2_times(*k2_err)
     k2_fwd["launches"], k2_bwd["launches"] = k2_launches
+    k34 = phase_k3_k4_times(k34_err)
+    for e in k34:
+        e["launches"] = k34_launches[e["name"]]
     phase_profile()
+    phase_transformer_profile()
 
     import torch
 
-    print(json.dumps({"kernels": [entry, k2_fwd, k2_bwd]}))
+    print(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": [entry, k2_fwd, k2_bwd] + k34}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,20 @@
 """Local-loss cross-entropy (pair: ``repro/core/local_loss.py:27``, ``token_xent``).
 
-Only the weighted mean with the pad ``mask`` is ported here; the rest of
-that module belongs to the transformer path.
+The per-token term runs on kernel K3 (``kernels/fused_xent.py``): the
+hand-written CUDA kernels for a CUDA tensor, their plain version for a CPU
+tensor. The weighted mean over the pad ``mask`` stays in torch ops on the
+(C, ...) per-token losses.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.fused_xent import fused_xent
+
 
 def token_xent(logits: torch.Tensor, labels: torch.Tensor,
                weight: torch.Tensor | None = None) -> torch.Tensor:
-    """Per-client mean cross-entropy; logits any float dtype, stats in fp32.
+    """Per-client mean cross-entropy; logits fp32 or bf16, stats in fp32.
 
     ``logits`` (C, ..., V), ``labels`` (C, ...): the leading client axis is
     kept, everything else is reduced, so the result is (C,) — the JAX
@@ -18,10 +22,9 @@ def token_xent(logits: torch.Tensor, labels: torch.Tensor,
     broadcastable, e.g. a per-sample (C, B) pad mask from
     ``data/pipeline.py``) turns the mean into a weighted mean so padded
     samples contribute nothing."""
-    x = logits.float()
-    lse = torch.logsumexp(x, dim=-1)
-    picked = torch.gather(x, -1, labels.long()[..., None])[..., 0]
-    per = lse - picked
+    V = logits.shape[-1]
+    per = fused_xent(logits.reshape(-1, V).contiguous(), labels.reshape(-1))
+    per = per.reshape(labels.shape)
     dims = tuple(range(1, per.ndim))
     if weight is None:
         return per.mean(dim=dims)

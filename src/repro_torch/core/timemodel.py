@@ -1,10 +1,10 @@
 """Simulated heterogeneous environment: resource profiles + analytic per-tier
 costs (the paper's Sec. 4.1 simulation, made analytic).
 
-Verbatim copy of ``repro/core/timemodel.py:1`` with ``resnet_tier_costs``
-(``:100``) reading the port's ``models/resnet``, and without
-``transformer_tier_costs`` and its helpers (they come with the transformer
-path).
+Verbatim copy of ``repro/core/timemodel.py:1``, with ``resnet_tier_costs``
+(``:100``) reading the port's ``models/resnet``, and
+``transformer_tier_costs`` (``:176``) and its helpers reading the port's
+``core/tiering`` and analytic parameter count (``models/model.py``).
 
 The paper assigns each client a (CPU fraction, Mbps) profile and *simulates*
 slowdown; we compute the same times analytically from per-tier FLOP/byte
@@ -176,6 +176,71 @@ def _with_client_overhead(cf: np.ndarray) -> np.ndarray:
     hi = cf[min(5, len(cf) - 1)]
     o = max((hi - TABLE2_RATIO * cf[0]) / (TABLE2_RATIO - 1.0), 0.0)
     return cf + o
+
+
+def transformer_tier_costs(cfg, batch_size: int, seq_len: int) -> TierCostTable:
+    """Per-tier costs for the transformer-family port (6*P*T fwd+bwd rule +
+    quadratic attention term)."""
+    from repro_torch.core import tiering
+    from repro_torch.models import model as M
+
+    tokens = batch_size * seq_len
+    n_tiers = tiering.n_tiers(cfg)
+    bounds = tiering.module_boundaries(cfg.n_layers, cfg.n_modules)
+
+    per_layer = _layer_params(cfg)
+    embed_p = cfg.vocab * cfg.d_model
+    head_p = 0 if cfg.tie_embeddings else cfg.vocab * cfg.d_model
+    attn_flops = (
+        0
+        if cfg.family == "ssm"
+        else 4 * tokens * min(seq_len, cfg.window or seq_len) * cfg.n_heads * cfg.resolved_head_dim
+    )
+
+    cf, sf, zb, pb, ze, pe = [], [], [], [], [], []
+    head_params = head_p if head_p else embed_p  # tied models still pay head FLOPs
+    for tier in range(1, n_tiers + 1):
+        s = bounds[tier - 1]
+        c_active = _active_layer_params(cfg) * s
+        s_active = _active_layer_params(cfg) * (cfg.n_layers - s)
+        aux_p = cfg.d_model * cfg.vocab  # auxiliary local head
+        cf.append(6.0 * (c_active + aux_p) * tokens + 3 * attn_flops * s / cfg.n_layers)
+        sf.append(
+            6.0 * (s_active + head_params) * tokens
+            + 3 * attn_flops * (cfg.n_layers - s) / cfg.n_layers
+        )
+        ze.append(tokens * cfg.d_model)
+        zb.append(tokens * cfg.d_model * 2 + tokens * 4)  # bf16 activations + labels
+        pe.append(per_layer * s + embed_p)
+        pb.append((per_layer * s + embed_p) * BYTES_PER_PARAM)
+    full_active = M.count_params_analytic(cfg, active_only=True)
+    full_total = M.count_params_analytic(cfg)
+    raw = np.array(cf, float)
+    cf_adj = _with_client_overhead(raw)
+    overhead = float(cf_adj[0] - raw[0])
+    return TierCostTable(
+        cf_adj, np.array(sf), np.array(zb), np.array(pb),
+        full_flops=6.0 * full_active * tokens + 3 * attn_flops + overhead,
+        full_param_bytes=full_total * BYTES_PER_PARAM,
+        z_elems=np.array(ze, float), label_bytes=float(tokens * 4),
+        param_elems=np.array(pe, float), full_param_elems=float(full_total),
+    )
+
+
+def _layer_params(cfg) -> int:
+    from repro_torch.models import model as M
+
+    total = M.count_params_analytic(cfg)
+    embed = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    return max((total - embed) // cfg.n_layers, 1)
+
+
+def _active_layer_params(cfg) -> int:
+    from repro_torch.models import model as M
+
+    total = M.count_params_analytic(cfg, active_only=True)
+    embed = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    return max((total - embed) // cfg.n_layers, 1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,6 @@
 """Client-local data pipeline: label pools -> shuffled minibatches.
 
-Verbatim copy of ``repro/data/pipeline.py:1`` without ``SeqClientDataset``
-(the token-LM dataset comes with the transformer path).
+Verbatim copy of ``repro/data/pipeline.py:1``.
 
 A ``ClientDataset`` owns a client's partition indices, materializes samples
 lazily per batch (templates + noise are regenerated deterministically from
@@ -81,3 +80,21 @@ def make_eval_batch(task: ClassImageTask, n: int, seed: int = 1234) -> dict:
     y = rng.integers(0, task.n_classes, n)
     x = task.sample(y, seed=seed + 1)
     return {"images": x, "labels": y.astype(np.int32)}
+
+
+class SeqClientDataset:
+    """Token-LM per-client dataset with the ClientDataset interface."""
+
+    def __init__(self, task, n_batches: int, batch_size: int, seq: int, seed: int):
+        self.task, self._n, self.batch_size, self.seq, self.seed = task, n_batches, batch_size, seq, seed
+
+    def __len__(self):
+        return self._n * self.batch_size
+
+    @property
+    def n_batches(self):
+        return self._n
+
+    def epoch(self, epoch_seed: int):
+        yield from self.task.batches(self.batch_size, self.seq, self._n,
+                                     seed=self.seed * 7919 + epoch_seed)

@@ -1,13 +1,16 @@
-"""ResNet adapter for DTFL (pair: ``repro/fed/adapter.py:49``, ``ResNetAdapter``).
+"""Model adapters for DTFL (pair: ``repro/fed/adapter.py:49``,
+``ResNetAdapter``, and ``:128``, ``TransformerAdapter``).
 
-Provides global init, tier split/merge, the two DTFL local-loss objectives,
-eval, and the per-tier cost table used by the time simulator and the
-scheduler's profiling. Losses and activations carry the leading client
-axis: ``client_loss`` returns a (C,) loss per client. ``dcor_alpha > 0``
-adds the §4.4 distance-correlation regularizer (``privacy.dcor``, on
-kernel K2); ``patch_shuffle`` shuffles the uploaded ``z`` only when a
-generator is passed, which the DTFL step does not do, as in the JAX
-package (``repro/fed/dtfl.py:133``).
+Each provides global init, tier split/merge, the two DTFL local-loss
+objectives, eval, and the per-tier cost table used by the time simulator
+and the scheduler's profiling. ``split`` takes one model (the global tree);
+``merge`` takes a cohort's halves, whose leaves carry the leading client
+axis, as do the losses and activations: ``client_loss`` returns a (C,)
+loss per client. For the ResNet, ``dcor_alpha > 0`` adds the §4.4
+distance-correlation regularizer (``privacy.dcor``, on kernel K2);
+``patch_shuffle`` shuffles the uploaded ``z`` only when a generator is
+passed, which the DTFL step does not do, as in the JAX package
+(``repro/fed/dtfl.py:133``).
 """
 from __future__ import annotations
 
@@ -17,8 +20,9 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch import privacy
-from repro_torch.core import splitting, timemodel
+from repro_torch.core import splitting, tiering, timemodel
 from repro_torch.core.local_loss import token_xent
+from repro_torch.models import model as M
 from repro_torch.models import resnet as R
 from repro_torch.tree import tree_map
 
@@ -91,3 +95,56 @@ class ResNetAdapter:
 
     def tier_costs(self, batch_size: int) -> timemodel.TierCostTable:
         return timemodel.resnet_tier_costs(self.cost_cfg, batch_size)
+
+
+class TransformerAdapter:
+    """The transformer archs (dense family so far). ``moe_aux`` is 0 for a
+    dense model; the ``+ 0.01 * moe_aux`` term is kept for the families to
+    come."""
+
+    def __init__(self, cfg, *, seq_len: int, cost_cfg=None, dcor_alpha: float = 0.0):
+        if dcor_alpha > 0.0:
+            raise NotImplementedError("dcor_alpha > 0 on a transformer is not yet ported")
+        # DTFL split training unties embeddings: the halves live on
+        # different hosts.
+        self.cfg = cfg.replace(tie_embeddings=False)
+        cost_cfg = (cost_cfg or cfg).replace(tie_embeddings=False)
+        if cost_cfg.n_modules != self.cfg.n_modules:
+            cost_cfg = cost_cfg.replace(n_modules=self.cfg.n_modules)
+        self.cost_cfg = cost_cfg
+        self.seq_len = seq_len
+        self.n_tiers = tiering.n_tiers(self.cfg)
+        self.dcor_alpha = dcor_alpha
+
+    def init_global(self, gen: torch.Generator) -> Params:
+        return M.init(gen, self.cfg)
+
+    def split(self, params: Params, tier: int):
+        return tiering.split_params(params, self.cfg, tier + 1)
+
+    def merge(self, client: Params, server: Params) -> Params:
+        return tiering.merge_params(client, server, axis=1)
+
+    def aux_init(self, gen: torch.Generator, tier: int) -> Params:
+        return M.aux_head_init(gen, self.cfg)
+
+    # ---- losses (leading client axis) ----
+    def client_loss(self, cp: Params, ap: Params, batch: dict,
+                    rng: torch.Generator | None = None):
+        z, moe_aux = M.client_forward(cp, self.cfg, batch)
+        logits = M.aux_head_apply(ap, self.cfg, z)
+        loss = token_xent(logits, batch["labels"], batch.get("mask")) + 0.01 * moe_aux
+        return loss, z
+
+    def server_loss(self, sp: Params, z: torch.Tensor, batch: dict, tier: int):
+        logits, moe_aux = M.server_forward(sp, self.cfg, z)
+        return token_xent(logits, batch["labels"], batch.get("mask")) + 0.01 * moe_aux
+
+    def eval_acc(self, params: Params, batch: dict) -> torch.Tensor:
+        """Next-token accuracy of one model (no client axis) on one batch."""
+        one = tree_map(lambda t: t[None], params)
+        logits, _ = M.forward(one, self.cfg, {k: v[None] for k, v in batch.items()})
+        return (logits[0].argmax(-1) == batch["labels"]).float().mean()
+
+    def tier_costs(self, batch_size: int) -> timemodel.TierCostTable:
+        return timemodel.transformer_tier_costs(self.cost_cfg, batch_size, self.seq_len)

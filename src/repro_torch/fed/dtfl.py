@@ -142,10 +142,11 @@ class DTFLTrainer:
         def run(params, aux, batches, mask):
             cp, sp = ad.split(params, tier)
             cp, auxd = codec.tree_down_rt(cp), codec.tree_down_rt(aux)
-            state = DTFLStepState(
-                cp, auxd, sp, opt.init(cp), opt.init(auxd), opt.init(sp)
-            )
-            final, _ = cohort_engine.run_cohort(step, state, batches, mask)
+            # passed without a name here, so the single-client optimizer
+            # state is freed once run_cohort has broadcast it
+            final, _ = cohort_engine.run_cohort(
+                step, DTFLStepState(cp, auxd, sp, opt.init(cp), opt.init(auxd), opt.init(sp)),
+                batches, mask)
             upc = codec_lib.uplink_rt(codec, final.client, cp)
             upa = codec_lib.uplink_rt(codec, final.aux, auxd)
             return ad.merge(upc, final.server), upa

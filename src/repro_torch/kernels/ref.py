@@ -6,6 +6,8 @@ kernel is held against.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -60,3 +62,95 @@ def pairwise_dist_bwd_ref(x: torch.Tensor, dist: torch.Tensor,
     s = h + h.transpose(1, 2)
     w = torch.diag_embed(s.sum(dim=-1)) - s
     return 2.0 * torch.bmm(w, x)
+
+
+def fused_xent_ref(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token cross-entropy: logits (T, V), labels (T,) -> (loss, lse),
+    both (T,) fp32.
+
+    ``repro/kernels/ref.py:72`` (``fused_xent_ref``) and
+    ``repro/core/local_loss.py:27`` (``token_xent``'s per-token term) in the
+    same op order: ``lse = logsumexp(x)`` in fp32, ``loss = lse - x[label]``;
+    lse is kept for the backward."""
+    x = logits.float()
+    lse = torch.logsumexp(x, dim=-1)
+    picked = torch.gather(x, -1, labels.long()[:, None])[:, 0]
+    return lse - picked, lse
+
+
+def fused_xent_bwd_ref(logits: torch.Tensor, labels: torch.Tensor, lse: torch.Tensor,
+                       g: torch.Tensor) -> torch.Tensor:
+    """Gradient of ``sum(g * loss)`` w.r.t. ``logits`` (T, V), in the logits'
+    dtype: ``g_t (exp(x - lse_t) - [v == label_t])``, computed in fp32."""
+    p = torch.exp(logits.float() - lse[:, None])
+    hit = torch.zeros_like(p).scatter_(1, labels.long()[:, None], 1.0)
+    return (g[:, None] * (p - hit)).to(logits.dtype)
+
+
+def _visible(S: int, causal: bool, window: int, device) -> torch.Tensor:
+    """(S, S) bool: query i may attend to key j."""
+    qpos = torch.arange(S, device=device)[:, None]
+    kpos = torch.arange(S, device=device)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= qpos - kpos < window
+    return mask
+
+
+def _grouped(t: torch.Tensor, kv: int) -> torch.Tensor:
+    """(N, S, H, hd) -> (N, S, KV, G, hd) fp32: query head h = kv * G + g."""
+    N, S, H, hd = t.shape
+    return t.float().reshape(N, S, kv, H // kv, hd)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+                  window: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Flash attention's function, materialized: q (N, S, H, hd), k and v
+    (N, S, KV, hd) -> (o (N, S, H, hd) in q's dtype, lse (N, H, S) fp32).
+
+    The Pallas kernel's arithmetic (``repro/kernels/flash_attention.py:29``)
+    without the blocking: fp32 scores ``q.k * (1 / sqrt(hd))``, masked;
+    ``p = exp(s - rowmax)``, ``l = sum p``; ``o = (p cast to v's dtype) @ v
+    / max(l, 1e-30)``; ``lse = rowmax + log(max(l, 1e-30))``. Heads are
+    grouped as ``repro/models/layers.py:136``: query head h reads KV head
+    h // (H / KV)."""
+    N, S, H, hd = q.shape
+    KV = k.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    s = torch.einsum("nqkgd,nskd->nkgqs", _grouped(q, KV), k.float()) * scale
+    vis = _visible(S, causal, window, q.device)
+    s = torch.where(vis, s, -torch.inf)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(vis, torch.exp(s - m), 0.0)
+    l = torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
+    acc = torch.einsum("nkgqs,nskd->nkgqd", p.to(v.dtype).float(), v.float())
+    o = (acc / l).permute(0, 3, 1, 2, 4).reshape(N, S, H, hd).to(q.dtype).contiguous()
+    lse = (m + torch.log(l)).reshape(N, H, S)
+    return o, lse
+
+
+def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool, window: int = 0):
+    """FlashAttention-2's backward of :func:`attention_ref` on the same
+    inputs, materialized: ``D = rowsum(dO * O)``, ``P = exp(s - lse)``,
+    ``dV = (P cast to v's dtype)^T dO``, ``dS = P (dO V^T - D)``,
+    ``dQ = scale dS K``, ``dK = scale dS^T Q``, dK and dV summed over the
+    G query heads of each KV head. Returns (dq, dk, dv) in the inputs'
+    dtypes."""
+    N, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qg, dog = _grouped(q, KV), _grouped(do, KV)
+    kf, vf = k.float(), v.float()
+    D = (do.float() * o.float()).sum(-1).reshape(N, S, KV, G).permute(0, 2, 3, 1)
+    s = torch.einsum("nqkgd,nskd->nkgqs", qg, kf) * scale
+    vis = _visible(S, causal, window, q.device)
+    p = torch.where(vis, torch.exp(s - lse.reshape(N, KV, G, S)[..., None]), 0.0)
+    dv = torch.einsum("nkgqs,nqkgd->nskd", p.to(v.dtype).float(), dog)
+    dp = torch.einsum("nqkgd,nskd->nkgqs", dog, vf)
+    ds = p * (dp - D[..., None])
+    dq = torch.einsum("nkgqs,nskd->nqkgd", ds, kf) * scale
+    dk = torch.einsum("nkgqs,nqkgd->nskd", ds, qg) * scale
+    return dq.reshape(N, S, H, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

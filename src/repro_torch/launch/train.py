@@ -7,11 +7,15 @@ on the card unless ``--device cpu``:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch resnet-56 \\
       --full-size --clients 10 --rounds 3 --codec int8 --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
+      --full-size --clients 4 --batch-size 4 --seq-len 512 --rounds 3
 
-Supported here: DTFL with the cohort plane and the rounds engine, ResNet
-archs, image datasets, schedulers ``dynamic`` or a fixed tier, codecs
-identity | bf16 | int8, and the distance-correlation regularizer
-(``--dcor-alpha``, on kernel K2). Other archs and datasets fail at parse time,
+Supported here: DTFL with the cohort plane and the rounds engine; the
+ResNet archs on the image datasets, with the distance-correlation
+regularizer (``--dcor-alpha``, on kernel K2); SmolLM-360M (dense
+transformer, kernels K3 and K4) on the token-LM task, its data built as
+``repro/api.py:760-786`` builds it; schedulers ``dynamic`` or a fixed tier;
+codecs identity | bf16 | int8. Other archs and datasets fail at parse time,
 other schedulers and codecs when the trainer is built, with "not yet
 ported".
 """
@@ -23,15 +27,18 @@ import time
 import numpy as np
 
 from repro_torch import optim
+from repro_torch.configs import get_config
 from repro_torch.configs.resnet_cifar import get_resnet
 from repro_torch.data.partition import dirichlet_partition, iid_partition
-from repro_torch.data.pipeline import ClientDataset, make_eval_batch
-from repro_torch.data.synthetic import ClassImageTask
-from repro_torch.fed.adapter import ResNetAdapter
+from repro_torch.data.pipeline import ClientDataset, SeqClientDataset, make_eval_batch
+from repro_torch.data.synthetic import ClassImageTask, SeqTask
+from repro_torch.fed.adapter import ResNetAdapter, TransformerAdapter
 from repro_torch.fed.client import HeteroEnv, SimClient
 from repro_torch.fed.dtfl import DTFLTrainer
 
-ARCHS = ("resnet-56", "resnet-110", "resnet-bench", "resnet-micro")
+RESNET_ARCHS = ("resnet-56", "resnet-110", "resnet-bench", "resnet-micro")
+TRANSFORMER_ARCHS = ("smollm-360m",)
+ARCHS = RESNET_ARCHS + TRANSFORMER_ARCHS
 # the image datasets of repro/registry.py:309-314 (n_classes, noise, seed)
 DATASETS = {
     "cifar10": (10, 0.35, 0),
@@ -43,6 +50,8 @@ DATASETS = {
 }
 DIRICHLET_ALPHA = 0.5     # repro/api.py DataSpec.alpha
 EVAL_SIZE = 512           # repro/api.py: eval_size None -> 512 images
+LM_BATCHES = 2            # repro/api.py DataSpec.n_batches: LM batches per client
+LM_EVAL_SEED = 99         # repro/api.py:782: the LM eval batch's stream
 
 
 def _not_yet_ported(choices):
@@ -64,6 +73,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--rounds", type=int, default=20)
     ap.add_argument("--samples", type=int, default=2000)
     ap.add_argument("--batch-size", type=int, default=32)
+    ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--dataset", default="cifar10", type=_not_yet_ported(tuple(DATASETS)))
     ap.add_argument("--iid", action="store_true")
     # the trainer resolves these and raises "not yet ported" on other values
@@ -78,8 +88,25 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def build(args) -> tuple[DTFLTrainer, dict]:
-    """Trainer and eval batch for parsed ``args``."""
+def _build_lm(args):
+    """Adapter, clients and eval batch of a transformer arch: the token-LM
+    task, ``LM_BATCHES`` batches per client (``repro/api.py:760-786``)."""
+    cfg_full = get_config(args.arch)
+    cfg = cfg_full if args.full_size else cfg_full.reduced()
+    adapter = TransformerAdapter(cfg, seq_len=args.seq_len, cost_cfg=cfg_full,
+                                 dcor_alpha=args.dcor_alpha)
+    task = SeqTask(vocab=cfg.vocab)
+    clients = [
+        SimClient(i, SeqClientDataset(task, LM_BATCHES, args.batch_size, args.seq_len, i), None)
+        for i in range(args.clients)
+    ]
+    eval_batch = next(task.batches(args.batch_size, args.seq_len, 1, seed=LM_EVAL_SEED))
+    return adapter, clients, eval_batch
+
+
+def _build_images(args):
+    """Adapter, clients and eval batch of a ResNet arch: an image dataset,
+    partitioned as ``repro/api.py:708-757`` partitions it."""
     cfg_full = get_resnet(args.arch)
     cfg = cfg_full if args.full_size else cfg_full.reduced()
     adapter = ResNetAdapter(cfg, cost_cfg=cfg_full, dcor_alpha=args.dcor_alpha)
@@ -96,11 +123,18 @@ def build(args) -> tuple[DTFLTrainer, dict]:
         SimClient(i, ClientDataset(task, labels, parts[i], args.batch_size), None)
         for i in range(args.clients)
     ]
+    return adapter, clients, make_eval_batch(task, EVAL_SIZE)
+
+
+def build(args) -> tuple[DTFLTrainer, dict]:
+    """Trainer and eval batch for parsed ``args``."""
+    build_data = _build_lm if args.arch in TRANSFORMER_ARCHS else _build_images
+    adapter, clients, eval_batch = build_data(args)
     env = HeteroEnv(args.clients, switch_every=args.switch_every, seed=args.seed)
     trainer = DTFLTrainer(adapter, clients, env, optim.adam(args.lr), seed=args.seed,
                           scheduler=args.scheduler, codec=args.codec,
                           device=args.device)
-    return trainer, make_eval_batch(task, EVAL_SIZE)
+    return trainer, eval_batch
 
 
 def main(argv=None, *, on_round=None):

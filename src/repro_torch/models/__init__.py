@@ -1,1 +1,1 @@
-"""Models of the port (pair: ``repro/models/``); ResNet only in this slice."""
+"""Models of the port (pair: ``repro/models/``): the ResNet and the dense transformer."""

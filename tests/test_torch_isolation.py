@@ -85,9 +85,33 @@ def test_unported_options_fail_loudly():
     with pytest.raises(NotImplementedError, match="not yet ported"):
         DTFLTrainer(*_tiny_trainer_args(), device="cpu", scheduler="pairing")
     with pytest.raises(SystemExit):
-        train.build_parser().parse_args(["--arch", "smollm-360m"])
+        train.build_parser().parse_args(["--arch", "xlstm-350m"])
     with pytest.raises(NotImplementedError, match="not yet ported"):
         train.main(["--arch", "resnet-micro", "--clients", "2", "--samples", "40",
                     "--codec", "topk0.05", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="not yet ported"):
         DTFLTrainer(*_tiny_trainer_args(), device="cpu").run(1, {}, engine="events")
+
+
+def test_transformer_cli_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch, capsys):
+    """The SmolLM-360M path: the CLI raises without a card, trains at the
+    reduced size on the CPU when asked, and the options this slice does not
+    port raise "not yet ported"."""
+    from repro_torch.configs import get_config
+    from repro_torch.fed.adapter import TransformerAdapter
+
+    argv = ["--arch", "smollm-360m", "--clients", "2", "--rounds", "1", "--batch-size", "2",
+            "--seq-len", "16"]
+    logs = train.main(argv + ["--device", "cpu"])
+    assert len(logs) == 1 and np.isfinite(logs[0].acc)
+    assert "[train] dtfl smollm-360m: 1 rounds" in capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        TransformerAdapter(get_config("smollm-360m").reduced(), seq_len=16, dcor_alpha=0.5)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        get_config("hymba-1.5b")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        TransformerAdapter(get_config("smollm-360m").reduced().replace(family="moe"),
+                           seq_len=16).init_global(torch.Generator())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(argv)

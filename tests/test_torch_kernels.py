@@ -8,8 +8,24 @@ JAX, hence ``--noconftest``):
 
 Tests marked ``cuda`` build and launch the CUDA kernels; they skip where
 ``torch.cuda.is_available()`` is false. The plain versions are held
-against the JAX package in ``test_torch_codec.py`` (K1) and
-``test_torch_privacy.py`` (K2).
+against the JAX package in ``test_torch_codec.py`` (K1),
+``test_torch_privacy.py`` (K2) and ``test_torch_attention_xent.py`` (K3,
+K4).
+
+K3 and K4 tolerances on the card, kernel against plain version on the same
+inputs (both sum in fp32, in other orders):
+  * K4 forward: fp32 atol = rtol = 2e-5, the JAX package's own tolerance
+    for its flash kernel (``tests/test_kernels.py:27``); bf16 2e-2, the
+    same test's, since the output is rounded to bf16 (2**-9 relative) and
+    p's cast to bf16 may fall on either side of a rounding boundary.
+  * K4 backward: fp32 rtol 1e-4, atol 1e-4 of the largest magnitude: each
+    gradient is a sum over up to S = 512 keys (or G * S queries) of
+    products of fp32 sums over hd, a few ulps of the largest term each;
+    bf16 2e-2 as the forward.
+  * K3 loss: atol 2e-4 (lse ~ log V ~ 11, summed over V in another order).
+  * K3 gradient: fp32 rtol 1e-5, atol 1e-6 of the largest magnitude; bf16
+    rtol 1e-2 (one bf16 rounding step, 2**-8, either way), atol 1e-6 of
+    the largest magnitude.
 
 K2 tolerances, with their reasons (u = 2**-24, gamma_n = n u / (1 - n u)):
   * forward, off the diagonal: rtol 1e-4, the JAX package's own tolerance
@@ -31,8 +47,11 @@ import torch
 
 from repro_torch import privacy
 from repro_torch.kernels import dcor, quantize
-from repro_torch.kernels.ref import (D_MIN, int8_roundtrip_ref, pairwise_dist_bwd_ref,
-                                     pairwise_dist_ref)
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import fused_xent as fx
+from repro_torch.kernels.ref import (D_MIN, attention_bwd_ref, attention_ref,
+                                     fused_xent_bwd_ref, fused_xent_ref, int8_roundtrip_ref,
+                                     pairwise_dist_bwd_ref, pairwise_dist_ref)
 
 U = 2.0 ** -24
 
@@ -221,3 +240,158 @@ def test_dcor_on_card_matches_float64(cuda_device):
     (gz,) = torch.autograd.grad(got.sum(), zc)
     assert (got.double().cpu() - want).abs().max() <= 1e-6
     assert (gz.double().cpu() - gwant).abs().max() <= 1e-4 * gwant.abs().max()
+
+
+def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take():
+    q, kv = torch.zeros(2, 8, 4, 16), torch.zeros(2, 8, 2, 16)
+    with pytest.raises(ValueError):   # k and v of different shapes
+        fa.flash_attention(q, kv, torch.zeros(2, 8, 1, 16))
+    with pytest.raises(ValueError):   # H not a multiple of KV
+        fa.flash_attention(torch.zeros(2, 8, 3, 16), kv, kv)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.double(), kv.double(), kv.double())
+    with pytest.raises(TypeError):   # mixed dtypes
+        fa.flash_attention(q, kv.bfloat16(), kv.bfloat16())
+    with pytest.raises(ValueError):
+        fa.flash_attention(q.to("meta"), kv.to("meta"), kv.to("meta"))
+    with pytest.raises(ValueError):
+        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), kv, kv)
+    with pytest.raises(ValueError):   # head_dim above 128
+        fa.flash_attention(torch.zeros(1, 4, 2, 160), torch.zeros(1, 4, 2, 160),
+                           torch.zeros(1, 4, 2, 160))
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, kv, kv, window=-1)
+
+
+def test_fused_xent_wrapper_rejects_what_the_kernel_does_not_take():
+    labels = torch.zeros(4, dtype=torch.int64)
+    with pytest.raises(ValueError):
+        fx.fused_xent(torch.zeros(2, 4, 5), labels)
+    with pytest.raises(TypeError):
+        fx.fused_xent(torch.zeros(4, 5, dtype=torch.float64), labels)
+    with pytest.raises(TypeError):
+        fx.fused_xent(torch.zeros(4, 5), labels.float())
+    with pytest.raises(ValueError):
+        fx.fused_xent(torch.zeros(4, 5, device="meta"), labels.to("meta"))
+    with pytest.raises(ValueError):
+        fx.fused_xent(torch.zeros(5, 4).t(), labels)
+    with pytest.raises(ValueError):
+        fx.fused_xent(torch.zeros(4, 0), labels)
+
+
+def test_plain_attention_grads_equal_autograd():
+    """The plain backward (FlashAttention-2's form from the saved lse) is
+    the gradient of the plain forward: against autograd through a
+    materialized fp64 softmax attention with grouped heads, causal and
+    windowed, ragged S."""
+    g = torch.Generator().manual_seed(0)
+    for S, causal, window in ((37, True, 0), (37, True, 9), (20, False, 0), (20, False, 6)):
+        q = torch.randn(2, S, 6, 16, generator=g, dtype=torch.float64)
+        k = torch.randn(2, S, 2, 16, generator=g, dtype=torch.float64)
+        v = torch.randn(2, S, 2, 16, generator=g, dtype=torch.float64)
+        do = torch.randn(2, S, 6, 16, generator=g, dtype=torch.float64)
+        qa, ka, va = (t.clone().requires_grad_(True) for t in (q, k, v))
+        kr, vr = (t.repeat_interleave(3, dim=2) for t in (ka, va))
+        s = torch.einsum("nqhd,nkhd->nhqk", qa, kr) / 4.0
+        qpos, kpos = torch.arange(S)[:, None], torch.arange(S)[None, :]
+        vis = torch.ones(S, S, dtype=torch.bool)
+        if causal:
+            vis &= qpos >= kpos
+        if window:
+            vis &= qpos - kpos < window
+        p = torch.softmax(s.masked_fill(~vis, -torch.inf), dim=-1)
+        o = torch.einsum("nhqk,nkhd->nqhd", p, vr)
+        grads = torch.autograd.grad((o * do).sum(), (qa, ka, va))
+        # the plain versions in fp32 on these inputs
+        q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+        o32, lse = attention_ref(q32, k32, v32, causal=causal, window=window)
+        assert torch.allclose(o32.double(), o, atol=1e-5)
+        got = attention_bwd_ref(q32, k32, v32, o32, lse, do32, causal=causal, window=window)
+        for a, b in zip(got, grads):
+            assert torch.allclose(a.double(), b, atol=1e-4, rtol=1e-4)
+
+
+def _close(got, want, rtol, atol):
+    """torch.allclose in fp32: atol is absolute, not scaled by the data."""
+    return torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,S,H,KV,hd,causal,window,dtype", [
+    (16, 512, 15, 5, 64, True, 0, torch.bfloat16),      # the path's shape
+    (16, 512, 15, 5, 64, True, 0, torch.float32),
+    (4, 512, 15, 5, 64, True, 128, torch.bfloat16),     # sliding window
+    (3, 200, 6, 2, 64, True, 0, torch.float32),         # ragged S
+    (3, 200, 4, 4, 64, True, 0, torch.float32),         # G = 1
+    (2, 130, 4, 2, 64, False, 0, torch.float32),        # full attention
+    (2, 96, 4, 2, 64, False, 40, torch.float32),        # window without causality
+    (8, 32, 4, 2, 32, True, 0, torch.float32),          # the reduced model's hd
+    (2, 150, 4, 1, 128, True, 0, torch.bfloat16),       # hd 128
+    (2, 70, 3, 3, 40, True, 0, torch.float32),          # hd not a power of two
+])
+def test_flash_attention_kernels_match_plain_on_card(cuda_device, N, S, H, KV, hd, causal,
+                                                     window, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q = torch.randn(N, S, H, hd, generator=g, device=cuda_device).to(dtype)
+    k = torch.randn(N, S, KV, hd, generator=g, device=cuda_device).to(dtype)
+    v = torch.randn(N, S, KV, hd, generator=g, device=cuda_device).to(dtype)
+    do = torch.randn(N, S, H, hd, generator=g, device=cuda_device).to(dtype)
+    before = dict(fa.LAUNCHES)
+    o, lse = fa.attn_forward(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["forward"] == before["forward"] + 1
+    o_want, lse_want = attention_ref(q, k, v, causal=causal, window=window)
+    # (rtol, atol): fp32 as tests/test_kernels.py:27; bf16 holds a measured
+    # error of 4e-3 (forward) and 2e-3 (backward) with room
+    fwd_tol, bwd_tol = (((2e-5, 2e-5), (1e-4, 1e-4)) if dtype == torch.float32
+                        else ((2e-2, 1e-2), (2e-2, 1e-2)))
+    assert _close(o, o_want, *fwd_tol)
+    assert torch.allclose(lse, lse_want, atol=1e-5, rtol=1e-5)
+
+    grads = fa.attn_backward(q, k, v, o, lse, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["backward"] == before["backward"] + 2   # dQ, then dK/dV
+    want = attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window)
+    for name, a, b in zip("qkv", grads, want):
+        assert _close(a, b, *bwd_tol), (name, float((a.float() - b.float()).abs().max()))
+    again = fa.attn_backward(q, k, v, o, lse, do, causal=causal, window=window)
+    for a, b in zip(grads, again):
+        assert torch.equal(a, b)   # no atomics: the same bits every run
+
+    qa, ka, va = (t.clone().requires_grad_(True) for t in (q, k, v))
+    auto = torch.autograd.grad((fa.flash_attention(qa, ka, va, causal=causal, window=window)
+                                * do).sum(), (qa, ka, va))
+    assert all(torch.equal(a, b) for a, b in zip(auto, grads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,V,dtype", [
+    (8_192, 49_152, torch.bfloat16),     # the path's heads
+    (320, 10, torch.float32),            # the ResNet's classifier
+    (1_000, 50_001, torch.bfloat16),     # ragged: rows off 16-byte alignment
+    (333, 4_096, torch.float32),
+    (7, 202_048, torch.bfloat16),        # the largest vocab of the assigned archs
+])
+def test_fused_xent_kernels_match_plain_on_card(cuda_device, T, V, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    logits = (3 * torch.randn(T, V, generator=g, device=cuda_device)).to(dtype)
+    labels = torch.randint(0, V, (T,), generator=g, device=cuda_device)
+    before = dict(fx.LAUNCHES)
+    loss, lse = fx.xent_forward(logits, labels)
+    torch.cuda.synchronize()
+    assert fx.LAUNCHES["forward"] == before["forward"] + 1
+    loss_want, lse_want = fused_xent_ref(logits, labels)
+    assert (loss - loss_want).abs().max() <= 2e-4
+    assert (lse - lse_want).abs().max() <= 2e-4
+
+    gt = torch.randn(T, generator=g, device=cuda_device)
+    grad = fx.xent_backward(logits, labels, lse, gt)
+    torch.cuda.synchronize()
+    assert fx.LAUNCHES["backward"] == before["backward"] + 1
+    want = fused_xent_bwd_ref(logits, labels, lse, gt)
+    assert grad.dtype == dtype
+    assert _close(grad, want, 1e-5 if dtype == torch.float32 else 1e-2, 1e-6)
+
+    la = logits.clone().requires_grad_(True)
+    (auto,) = torch.autograd.grad((fx.fused_xent(la, labels) * gt).sum(), la)
+    assert torch.equal(auto, grad)

@@ -196,3 +196,85 @@ def test_masked_client_keeps_its_state():
         assert torch.equal(a[1], b)
         assert not torch.equal(a[0], b)
     assert final.c_opt["t"].tolist() == [1, 0]
+
+
+# ---------------------------------------------------------------------------
+# the transformer (SmolLM-360M reduced to 6 layers, 4 heads over 2 KV heads,
+# 4 modules; tests/test_torch_transformer.py): one DTFL step at tier 1
+# (0-based: the client keeps 4 of 6 blocks), a cohort of two clients
+# ---------------------------------------------------------------------------
+
+def _lm_setup(dtype):
+    from repro.configs import get_config as jget_config
+    from repro.fed.adapter import TransformerAdapter as JTAdapter
+    from repro_torch.configs import get_config
+    from repro_torch.fed.adapter import TransformerAdapter as TTAdapter
+
+    red = dict(n_layers=6, n_kv_heads=2, n_modules=4, dtype=dtype)
+    jad = JTAdapter(jget_config("smollm-360m").reduced().replace(**red), seq_len=16,
+                    cost_cfg=jget_config("smollm-360m"))
+    tad = TTAdapter(get_config("smollm-360m").reduced().replace(**red), seq_len=16,
+                    cost_cfg=get_config("smollm-360m"))
+    params = jax.jit(jad.init_global)(jax.random.PRNGKey(0))
+    aux = jax.jit(lambda k: jad.aux_init(k, TIER))(jax.random.PRNGKey(1))
+    jc, js = jad.split(params, TIER)
+    tc, ts = tad.split(_port(params), TIER)
+    ta = _port(aux)
+    jopt, topt = joptim.adam(LR), toptim.adam(LR)
+    jstate = jax.jit(lambda c, a, s: jcohort.broadcast_state(
+        JState(c, a, s, jopt.init(c), jopt.init(a), jopt.init(s)), 2))(jc, aux, js)
+    tstate = tcohort.broadcast_state(
+        TState(tc, ta, ts, topt.init(tc), topt.init(ta), topt.init(ts)), 2)
+    codec = "identity"
+    jstep = JTrainer._raw_step(types.SimpleNamespace(
+        adapter=jad, opt=jopt, codec=jcodec.make_codec(codec)), TIER)
+    tstep = TTrainer._raw_step(types.SimpleNamespace(
+        adapter=tad, opt=topt, codec=tcodec.make_codec(codec)), TIER)
+    return jad, tad, jstate, tstate, jstep, tstep
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_transformer_dtfl_step_matches_jax(dtype):
+    """Losses, z, gradients, the updated halves and the optimizer state of
+    one step. fp32: the tolerances of the ResNet step above. bf16: the
+    two frameworks round activations to bf16 at different places
+    (tests/test_torch_transformer.py), so losses, z and gradients are held
+    to 2e-2 (relative, and absolute in units of the leaf's largest
+    magnitude, at least 1), as are Adam's moments. A gradient element
+    below 5e-2 of its leaf's largest magnitude has a noise-level sign, so
+    its Adam step may differ by the full 2 * lr (measured: every differing
+    step is below 2.2e-2); such differing steps are at most 3% of each
+    half's elements (measured: 0.6-1.8%)."""
+    jad, tad, jstate, tstate, jstep, tstep = _lm_setup(dtype)
+    rng = np.random.default_rng(0)
+    s = rng.integers(0, tad.cfg.vocab, (2, 3, 17)).astype(np.int32)
+    batch = {"tokens": s[..., :-1], "labels": s[..., 1:]}
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    jcl, jz, jg, jzr, jsg, (jnew, (jcl2, jsl)) = _jax_step_refs(
+        jad, jstep, "identity", jstate, jax.tree.map(jnp.asarray, batch))
+    f32 = dtype == "float32"
+    close = _assert_close if f32 else (lambda a, b: _assert_close(
+        np.asarray(a, np.float32), np.asarray(b, np.float32), rtol=2e-2, atol=2e-2))
+
+    tcl, tz, tg = _value_and_grad(lambda ca: tad.client_loss(ca[0], ca[1], tb),
+                                  (tstate.client, tstate.aux))
+    close(tcl.numpy(), jcl)
+    close(tz.detach().float().numpy(), np.asarray(jz, np.float32))
+    jax.tree.map(close, to_numpy_tree(tg), jg)
+
+    tnew, (tcl2, tsl) = tstep(tstate, tb)
+    close(tcl2.numpy(), jcl2)
+    close(tsl.numpy(), jsl)
+    noise = 1e-4 if f32 else 5e-2
+    for half, grads in (("client", jg[0]), ("aux", jg[1]), ("server", jsg)):
+        jax.tree.map(lambda *a: _assert_adam_step_close(*a, grad_noise=noise),
+                     to_numpy_tree(getattr(tnew, half)), getattr(jnew, half),
+                     _np(getattr(jstate, half)), grads)
+        if not f32:
+            pairs = list(zip(jax.tree.leaves(to_numpy_tree(getattr(tnew, half))),
+                             jax.tree.leaves(_np(getattr(jnew, half)))))
+            differing = sum(int((np.abs(a - b) > 1e-6).sum()) for a, b in pairs)
+            assert differing <= 0.03 * sum(a.size for a, _ in pairs)
+    np.testing.assert_array_equal(tnew.c_opt["t"].numpy(), jnew.c_opt["t"])
+    for opt in ("c_opt", "a_opt", "s_opt"):
+        jax.tree.map(close, to_numpy_tree(getattr(tnew, opt)["m"]), getattr(jnew, opt)["m"])
