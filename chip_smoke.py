@@ -58,8 +58,36 @@ Phases (any failure exits non-zero and prints no result line):
      timed only; then torch.profiler over two rounds of the transformer
      run (device busy share, K3's and K4's shares, the top kernels),
      printed only.
-Then one JSON line of kernel measurements (K1, K2, K3 and K4, forward and
-backward), the nvidia-smi line, and as the last line
+ 12. K5 (the mLSTM chunk kernels), forward and backward, against the plain
+     chunk form and autograd through it on the card, at the xLSTM path's
+     shape (48, 512, 512), the reduced model's (24, 320, 64) and ragged
+     ones, within the absolute tolerances of tests/test_torch_kernels.py
+     (h 2e-4; dq 2e-3; dv 2e-4; dk, d log_f, d i 2e-2); the backward must
+     be bit-identical run to run.
+ 13. xLSTM run: the same entry point on full-width xLSTM-350M (24 layers,
+     d_model 1024, 4 heads, mLSTM head dim 512, an sLSTM block every 8th
+     layer, vocab 50,304, 8 modules, 7 tiers; weights random from seed 0),
+     3 clients, batch 4, sequence 512, 3 rounds, the token-LM task. K5 and
+     K3 counts are zeroed just before and read after; every round must
+     launch K5's forward and backward kernels and K3's, and every parameter
+     and aux head must stay finite and keep its shape.
+ 14. the reduced xLSTM-350M at 320 tokens (two K5 chunks) on the card and
+     on the CPU, as phase 6.
+ 15. K5 times as K3's and K4's (no single PyTorch call computes an mLSTM,
+     so no library yardstick), beside the bound: the fp32 operations this
+     run's chunks need over the fp32 rate; then torch.profiler over two
+     rounds of the xLSTM run (device busy share, K5's and K3's shares, the
+     top kernels), printed only. Every profile records device activity
+     only and reads the raw trace.
+Every phase first waits, up to CARD_WAIT_S seconds over the whole run, until
+the card has the device memory it needs free: another process on the same
+card (a second run started beside this one) may hold its memory until it
+ends. A phase that runs out of device memory while another process holds
+memory on the card is run again, in full, once that memory is free; any
+other failure, or a second one, ends the run. Each phase prints its peak
+of reserved memory.
+Then one JSON line of kernel measurements (K1, K2, K3, K4 and K5, forward
+and backward), the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -84,6 +112,72 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+CARD_WAIT_S = 600.0            # the most the whole run waits for another process
+_card_waited = [0.0]
+
+
+def _others_gib() -> float:
+    """Device memory held outside this process's allocator, in GiB (this
+    process's CUDA context, well under 1 GiB, included)."""
+    import torch
+
+    free, total = torch.cuda.mem_get_info()
+    return (total - free - torch.cuda.memory_reserved()) / 2**30
+
+
+def _await_card(label: str, need_gib: float) -> None:
+    """Wait until the card has ``need_gib`` GiB free for phase ``label``,
+    after releasing this process's cached blocks; fail once the waits of
+    the whole run pass CARD_WAIT_S."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    if free >= need_gib * 2**30:
+        return
+    print(f"[wait] {label}: {free / 2**30:.2f} of {total / 2**30:.2f} GiB free, "
+          f"{need_gib} GiB needed, {_others_gib():.2f} GiB held outside this process; "
+          "waiting", flush=True)
+    t0 = time.perf_counter()
+    while free < need_gib * 2**30:
+        if _card_waited[0] + time.perf_counter() - t0 > CARD_WAIT_S:
+            fail(f"{label}: the card never had {need_gib} GiB free in {CARD_WAIT_S:.0f} s "
+                 f"of waiting ({free / 2**30:.2f} GiB free)")
+        time.sleep(2)
+        free, _ = torch.cuda.mem_get_info()
+    waited = time.perf_counter() - t0
+    _card_waited[0] += waited
+    print(f"[wait] {label}: {free / 2**30:.2f} GiB free after {waited:.1f} s", flush=True)
+
+
+def _phase(label: str, need_gib: float, fn, *args):
+    """``fn(*args)`` once the card has ``need_gib`` GiB free. Out of device
+    memory while more than 2 GiB are held outside this process, it waits and
+    runs ``fn`` again, once; every other failure ends the run."""
+    import torch
+
+    for attempt in (1, 2):
+        _await_card(label, need_gib)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            out = fn(*args)
+        except torch.OutOfMemoryError as e:
+            others = _others_gib()
+            if attempt == 2 or others <= 2:
+                raise
+            reason = str(e).splitlines()[0]
+        else:
+            print(f"[mem] {label}: peak reserved "
+                  f"{torch.cuda.max_memory_reserved() / 2**30:.3f} GiB")
+            return out
+        # out of the except block, so that the failed attempt's tensors are freed
+        print(f"[wait] {label}: out of device memory with {others:.2f} GiB held outside "
+              f"this process ({reason}); running the phase again", flush=True)
+
+
 def phase_device():
     import torch
 
@@ -102,13 +196,14 @@ def phase_device():
 
 def phase_build():
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import dcor, flash_attention, fused_xent, nvcc, quantize
+    from repro_torch.kernels import (dcor, flash_attention, fused_xent, mlstm_chunk, nvcc,
+                                     quantize)
 
-    names = ("int8_roundtrip", "pairwise_dist", "fused_xent", "flash_attention")
+    names = nvcc.SOURCES
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(nvcc.build, names))
-    for mod in (quantize, dcor, fused_xent, flash_attention):
+    for mod in (quantize, dcor, fused_xent, flash_attention, mlstm_chunk):
         mod.load_library()
     print(f"[build] {', '.join(names)} in parallel: {time.perf_counter() - t0:.2f} s")
     for name in names:
@@ -492,67 +587,108 @@ def phase_dcor_run() -> tuple[int, int]:
     return launches["forward"], launches["backward"]
 
 
-def _device_events(prof) -> list:
-    """The profiled device-side events (kernels, copies, sets) only: a host
-    op's own entry also carries its kernels' time and would count it twice.
-    A kernel launched through ctypes is traced like any other."""
+def _kernel_totals(prof) -> dict:
+    """{name: [calls, device seconds]} of the traced device activities
+    (kernels, copies, sets), read from the raw trace: ``key_averages``
+    builds a Python object per event and takes minutes on the ~10^6 events
+    of the xLSTM rounds. A kernel launched through ctypes is traced like
+    any other."""
     from torch.autograd import DeviceType
 
-    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    totals: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            t = totals.setdefault(e.name(), [0, 0.0])
+            t[0] += 1
+            t[1] += e.duration_ns() / 1e9
+    return totals
 
 
-def _device_us(events, name: str) -> float:
-    """Device time in microseconds of the events whose name holds ``name``."""
-    return sum(e.self_device_time_total for e in events if name in e.key)
+def _named(totals: dict, names) -> tuple[int, float]:
+    """Calls and device seconds of the activities whose name holds one of ``names``."""
+    hits = [v for key, v in totals.items() if any(n in key for n in names)]
+    return sum(h[0] for h in hits), sum(h[1] for h in hits)
 
 
-def phase_profile() -> None:
-    """torch.profiler over K2's kernels and over one round of the dcor run:
-    device time per kernel, the round's device busy share and K2's part of
-    it, the top kernels. Only printed; a trace with no device time prints
-    "not measured"."""
-    import torch
+def _profile(fn):
+    """Run ``fn()`` under torch.profiler with device activity only (the one
+    setting of every profile here); returns (fn's result, kernel totals)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels import dcor
-    from repro_torch.launch import train
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+    return out, _kernel_totals(prof)
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+K2_KERNELS = ("gram_partial", "gram_finish", "dist_backward")
+K3_KERNELS = ("xent_fwd", "xent_bwd")
+K4_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")
+
+
+def phase_k2_profile() -> None:
+    """torch.profiler over K2's kernels: device time per call. Printed only;
+    a trace with no device time prints "not measured"."""
+    import torch
+
+    from repro_torch.kernels import dcor
+
     g = torch.Generator(device="cuda").manual_seed(2)
     x = torch.randn((5, 32, 65_536), generator=g, device="cuda")
     dist = dcor.dist_forward(x)
     gd = torch.randn(dist.shape, generator=g, device="cuda")
     torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
+
+    def calls():
         for _ in range(TIMED_ITERS):
             dcor.dist_forward(x)
             dcor.dist_backward(x, dist, gd)
         torch.cuda.synchronize()
-    events = _device_events(prof)
-    for name in ("gram_partial", "gram_finish", "dist_backward"):
-        us = _device_us(events, name) / TIMED_ITERS
+
+    _, totals = _profile(calls)
+    for name in K2_KERNELS:
+        us = _named(totals, (name,))[1] * 1e6 / TIMED_ITERS
         print(f"[profile] K2 {name} at (5, 32, 65536): "
               + (f"{us / 1e3:.4f} ms device time per call" if us else "not measured"))
 
-    argv = ["--arch", "resnet-56", "--full-size", "--dataset", "cifar10-noisy",
-            "--clients", "5", "--samples", "1200", "--iid", "--batch-size", "32",
-            "--rounds", "2", "--dcor-alpha", "0.5", "--scheduler", "dynamic",
-            "--lr", "1e-3", "--device", "cuda"]
-    walls = []
-    with profile(activities=acts) as prof:
-        train.main(argv, on_round=lambda trainer, log: walls.append(log.wall_s))
-    events = _device_events(prof)
-    busy = sum(e.self_device_time_total for e in events) / 1e6
+
+def phase_rounds_profile(label: str, argv: list[str], groups: dict) -> None:
+    """torch.profiler over two rounds of the CLI run ``argv``, its trainer
+    (and the initial weights' copy to the card) built outside the trace: the
+    device busy share, each kernel group's share and its kernels' calls, the
+    top kernels. Printed only."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch import train
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer, eval_batch = train.build(train.build_parser().parse_args(argv))
+    logs, totals = _profile(lambda: trainer.run(2, eval_batch))
+    busy = sum(t for _, t in totals.values())
     if not busy:
-        print("[profile] dcor run: no device time in the trace (not measured)")
+        print(f"[profile] {label}: no device time in the trace (not measured)")
         return
-    k2 = sum(_device_us(events, n) for n in ("gram_partial", "gram_finish", "dist_backward"))
-    wall = sum(walls)
-    print(f"[profile] dcor run, rounds 0-1 under the profiler: wall {wall:.3f} s, device "
-          f"busy {busy:.3f} s ({busy / wall:.1%} of wall), K2 {k2 / 1e6:.4f} s "
-          f"({k2 / 1e6 / busy:.2%} of device time)")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"[profile]   {e.self_device_time_total / 1e6:.4f} s  {e.count:6d} x  {e.key[:90]}")
+    wall = sum(log.wall_s for log in logs)
+    shares = ", ".join(f"{g} {_named(totals, names)[1]:.4f} s "
+                       f"({_named(totals, names)[1] / busy:.2%} of device time)"
+                       for g, names in groups.items())
+    print(f"[profile] {label}, rounds 0-1 under the profiler: wall {wall:.3f} s, "
+          f"device busy {busy:.3f} s ({busy / wall:.1%} of wall), {shares}, "
+          f"{sum(n for n, _ in totals.values())} device activities")
+    for name in (name for names in groups.values() for name in names):
+        n, t = _named(totals, (name,))
+        print(f"[profile]   {name}: {n} calls, {t:.4f} s"
+              + (f", {t / n * 1e3:.4f} ms per call" if n else ""))
+    for key, (n, t) in sorted(totals.items(), key=lambda kv: -kv[1][1])[:10]:
+        print(f"[profile]   {t:.4f} s  {n:6d} x  {key[:90]}")
+
+
+DCOR_PROFILE_ARGV = ["--arch", "resnet-56", "--full-size", "--dataset", "cifar10-noisy",
+                     "--clients", "5", "--samples", "1200", "--iid", "--batch-size", "32",
+                     "--dcor-alpha", "0.5", "--scheduler", "dynamic", "--lr", "1e-3",
+                     "--device", "cuda"]
 
 
 RESNET_SMALL = ["--arch", "resnet-56", "--clients", "4", "--samples", "200",
@@ -561,8 +697,20 @@ SMOLLM_SMALL = ["--arch", "smollm-360m", "--clients", "4", "--batch-size", "4",
                 "--seq-len", "64", "--rounds", "3"]
 
 
-def phase_small_reference(argv: list[str], label: str) -> None:
-    """The CLI at a tiny size on the card against the CPU's plain path."""
+def _leaf_names(tree, prefix: str = "") -> list[str]:
+    """The '/'-joined key paths of ``tree``'s leaves, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in tree for n in _leaf_names(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, x in enumerate(tree) for n in _leaf_names(x, f"{prefix}{i}/")]
+    return [prefix.rstrip("/")]
+
+
+def phase_small_reference(argv: list[str], label: str,
+                          bounds: tuple[float, float, float] = (0.5, 0.1, 0.01)) -> None:
+    """The CLI at a tiny size on the card against the CPU's plain path;
+    parameters within ``bounds`` (max, 99th percentile, median) in units of
+    lr * local steps."""
     import numpy as np
 
     from repro_torch.bridge import to_numpy_tree
@@ -582,16 +730,21 @@ def phase_small_reference(argv: list[str], label: str) -> None:
                  f"card and CPU")
     # the bounds of tests/test_torch_dtfl.py, in units of lr * local steps
     unit = 1e-3 * 3 * max(c.n_batches for c in ctr.clients)
-    d = np.concatenate([
-        np.abs(x - y).ravel() for x, y in zip(
-            tree_leaves(to_numpy_tree(gtr.params)), tree_leaves(to_numpy_tree(ctr.params)))])
-    if d.max() > 0.5 * unit or np.quantile(d, 0.99) > 0.1 * unit or np.median(d) > 0.01 * unit:
-        fail(f"{label}: card and CPU parameters differ: max {d.max() / unit} U, "
-             f"99th percentile {np.quantile(d, 0.99) / unit} U, median {np.median(d) / unit} U")
+    names = _leaf_names(ctr.params)
+    diffs = [np.abs(x - y) for x, y in zip(
+        tree_leaves(to_numpy_tree(gtr.params)), tree_leaves(to_numpy_tree(ctr.params)))]
+    d = np.concatenate([x.ravel() for x in diffs])
+    p99 = np.quantile(d, 0.99)
     print(f"[reference] card vs CPU, reduced {argv[1]}, 3 {label} rounds: logs equal, "
           f"parameter |diff| max {d.max():.3g} ({d.max() / unit:.3g} U) median "
           f"{np.median(d):.3g} ({np.median(d) / unit:.3g} U), 99th percentile "
-          f"{np.quantile(d, 0.99) / unit:.3g} U")
+          f"{p99 / unit:.3g} U")
+    above = sorted(((int((x > p99).sum()), n) for n, x in zip(names, diffs)), reverse=True)
+    print("[reference]   elements above the 99th percentile, by leaf: "
+          + ", ".join(f"{n} {c}" for c, n in above[:5]))
+    if d.max() > bounds[0] * unit or p99 > bounds[1] * unit or np.median(d) > bounds[2] * unit:
+        fail(f"{label}: card and CPU parameters differ: max {d.max() / unit} U, "
+             f"99th percentile {p99 / unit} U, median {np.median(d) / unit} U")
 
 
 def phase_k1_device_time(entry: dict) -> None:
@@ -869,65 +1022,267 @@ def phase_k3_k4_times(err: dict) -> list[dict]:
     return entries
 
 
-def phase_transformer_profile() -> None:
-    """torch.profiler over two rounds of the transformer run: the device busy
-    share, K3's and K4's shares, the top kernels. Printed only."""
-    from torch.profiler import ProfilerActivity, profile
+# K5 cases: (label, BH, S, dh); the first is the xLSTM path's (3 clients x 4
+# sequences x 4 heads, 512 tokens, mLSTM head dim 512: two chunks of 256)
+MLSTM_CASES = [
+    ("path", 48, 512, 512),
+    ("reduced model, dh 64", 24, 320, 64),
+    ("ragged S = 96, dh 32", 3, 96, 32),
+    ("ragged S = 200, dh 128", 3, 200, 128),
+    ("ragged S = 300, dh 256", 2, 300, 256),
+]
+# absolute tolerances of tests/test_torch_kernels.py (about 5x the largest
+# errors measured at the path's shape)
+MLSTM_TOL = {"h": 2e-4, "dq": 2e-3, "dk": 2e-2, "dv": 2e-4, "dlf": 2e-2, "dig": 2e-2}
+MLSTM_KERNELS = ("mlstm_prep", "mlstm_scores", "mlstm_state", "mlstm_norm", "mlstm_out",
+                 "mlstm_bprep", "mlstm_bstate", "mlstm_bscores", "mlstm_dq", "mlstm_dk",
+                 "mlstm_dv", "mlstm_gates")
 
+
+def _mlstm_inputs(BH, S, dh, g):
+    """q ~ N(0, 1), k ~ N(0, 1/dh) (the model divides k by sqrt(dh)), v ~
+    N(0, 1), forget gates log_sigmoid(N(3, 1)) (the model's bias 3), input
+    gates sigmoid(N(0, 1)); fp32 on the card."""
+    import torch
+    import torch.nn.functional as F
+
+    q = torch.randn(BH, S, dh, generator=g, device="cuda")
+    k = torch.randn(BH, S, dh, generator=g, device="cuda") / dh ** 0.5
+    v = torch.randn(BH, S, dh, generator=g, device="cuda")
+    lf = F.logsigmoid(torch.randn(BH, S, generator=g, device="cuda") + 3)
+    ig = torch.sigmoid(torch.randn(BH, S, generator=g, device="cuda"))
+    return q, k, v, lf, ig
+
+
+def phase_k5() -> dict:
+    """K5 forward and backward against the plain chunk form and autograd
+    through it, on the same inputs; the backward twice, bit-identical.
+    Returns the largest |diff| of the forward and of the backward."""
+    import torch
+
+    from repro_torch.kernels import mlstm_chunk as mk
+    from repro_torch.kernels.ref import mlstm_chunk_ref
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    err = {"mlstm_chunk_forward": 0.0, "mlstm_chunk_backward": 0.0}
+    for label, BH, S, dh in MLSTM_CASES:
+        ins = _mlstm_inputs(BH, S, dh, g)
+        gout = torch.randn(BH, S, dh, generator=g, device="cuda")
+        h, saved = mk.mlstm_forward(*ins)
+        grads = mk.mlstm_backward(*ins, h, saved, gout)
+        again = mk.mlstm_backward(*ins, h, saved, gout)
+        torch.cuda.synchronize()
+        leaves = [t.clone().requires_grad_(True) for t in ins]
+        want_h = mlstm_chunk_ref(*leaves)
+        want = torch.autograd.grad(want_h, leaves, gout)
+        fwd = float((h - want_h.detach()).abs().max())
+        if not fwd <= MLSTM_TOL["h"]:
+            fail(f"mlstm_chunk forward differs from its plain version on {label}: max |diff| {fwd}")
+        bwd = {}
+        for name, a, b in zip(("dq", "dk", "dv", "dlf", "dig"), grads, want):
+            bwd[name] = float((a - b).abs().max())
+            if not bool(torch.isfinite(a).all()) or not bwd[name] <= MLSTM_TOL[name]:
+                fail(f"mlstm_chunk backward {name} differs from its plain version on {label}: "
+                     f"max |diff| {bwd[name]}")
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            fail(f"mlstm_chunk backward is not bit-identical run to run on {label}")
+        err["mlstm_chunk_forward"] = max(err["mlstm_chunk_forward"], fwd)
+        err["mlstm_chunk_backward"] = max(err["mlstm_chunk_backward"], max(bwd.values()))
+        print(f"[kernels] mlstm_chunk {label} {(BH, S, dh)} fp32: forward max |diff| {fwd:.3g}, "
+              f"backward max |diff| " + ", ".join(f"{k} {v:.3g}" for k, v in bwd.items())
+              + ", backward bit-identical run to run")
+    return err
+
+
+XLSTM_ARGV = ["--arch", "xlstm-350m", "--full-size", "--clients", "3", "--batch-size", "4",
+              "--seq-len", "512", "--scheduler", "dynamic", "--lr", "1e-3", "--device", "cuda"]
+# 320 tokens: two K5 chunks on the card (256 + 64), two of 160 in the CPU's plain form
+XLSTM_SMALL = ["--arch", "xlstm-350m", "--clients", "4", "--batch-size", "4",
+               "--seq-len", "320", "--rounds", "3"]
+
+
+def _k3_k5_counts() -> dict:
+    from repro_torch.kernels import fused_xent as fx
+    from repro_torch.kernels import mlstm_chunk as mk
+
+    return {"fused_xent_forward": fx.LAUNCHES["forward"],
+            "fused_xent_backward": fx.LAUNCHES["backward"],
+            "mlstm_chunk_forward": mk.LAUNCHES["forward"],
+            "mlstm_chunk_backward": mk.LAUNCHES["backward"]}
+
+
+def phase_xlstm_run() -> dict:
+    """DTFL on full-width xLSTM-350M; every round must launch K5 and K3,
+    forward and backward."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import fused_xent as fx
+    from repro_torch.kernels import mlstm_chunk as mk
     from repro_torch.launch import train
 
-    # the trainer (and its initial weights' copy to the card) outside the trace
-    trainer, eval_batch = train.build(train.build_parser().parse_args(TRANSFORMER_ARGV))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        logs = trainer.run(2, eval_batch)
-    walls = [log.wall_s for log in logs]
-    events = _device_events(prof)
-    busy = sum(e.self_device_time_total for e in events) / 1e6
-    if not busy:
-        print("[profile] transformer run: no device time in the trace (not measured)")
-        return
-    k3 = sum(_device_us(events, n) for n in ("xent_fwd", "xent_bwd")) / 1e6
-    k4 = sum(_device_us(events, n) for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")) / 1e6
-    wall = sum(walls)
-    print(f"[profile] transformer run, rounds 0-1 under the profiler: wall {wall:.3f} s, "
-          f"device busy {busy:.3f} s ({busy / wall:.1%} of wall), K3 {k3:.4f} s "
-          f"({k3 / busy:.2%} of device time), K4 {k4:.4f} s ({k4 / busy:.2%})")
-    for name in ("xent_fwd", "xent_bwd", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"):
-        n = sum(e.count for e in events if name in e.key)
-        us = _device_us(events, name)
-        print(f"[profile]   {name}: {n} calls, {us / 1e6:.4f} s"
-              + (f", {us / n / 1e3:.4f} ms per call" if n else ""))
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"[profile]   {e.self_device_time_total / 1e6:.4f} s  {e.count:6d} x  {e.key[:90]}")
+    rounds = []
+    shapes = {}
+
+    def on_round(trainer, log):
+        if not shapes:
+            shapes.update(_check_trees_finite(trainer))
+        else:
+            _check_trees_finite(trainer, shapes)
+        rounds.append((log, _k3_k5_counts()))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fx.LAUNCHES.update(forward=0, backward=0)
+    mk.LAUNCHES.update(forward=0, backward=0)
+    logs = train.main(XLSTM_ARGV + ["--rounds", "3"], on_round=on_round)
+    launches = _k3_k5_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    if len(logs) != 3 or len(rounds) != 3:
+        fail(f"xLSTM run: expected 3 rounds, got {len(logs)}")
+    before = dict.fromkeys(launches, 0)
+    for log, count in rounds:
+        got = {k: count[k] - before[k] for k in count}
+        if min(got.values()) <= 0:
+            fail(f"xLSTM run round {log.round} launched no kernel of {got}")
+        tiers = sorted(set(log.assignment.values()))
+        print(f"[xlstm] round {log.round}: wall {log.wall_s:.3f} s, sim clock "
+              f"{log.clock:.4f} s, uplink_bytes {log.uplink_bytes:.0f}, tiers {tiers}, "
+              f"acc {log.acc:.4f}, launches K5 forward {got['mlstm_chunk_forward']} backward "
+              f"{got['mlstm_chunk_backward']}, K3 forward {got['fused_xent_forward']} backward "
+              f"{got['fused_xent_backward']}")
+        before = count
+    print(f"[xlstm] peak device memory {peak / 2**30:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated), launches {launches}")
+    return launches
+
+
+def _mlstm_work(BH: int, S: int, dh: int) -> tuple[float, float, float, float]:
+    """The fp32 operations and bytes K5's forward and backward need on these
+    shapes, in chunks of 256: products only where s <= t, no product with the
+    zero state of the first chunk, no state update after the last. Returns
+    (forward ops, forward bytes, backward ops, backward bytes)."""
+    from repro_torch.kernels.mlstm_chunk import CHUNK
+
+    lens = [min(CHUNK, S - c0) for c0 in range(0, S, CHUNK)]
+    tri = sum(L * (L + 1) // 2 for L in lens) * dh          # one causal (P, P, dh) product
+    mid = sum(L for L in lens[1:]) * dh * dh                # q C, or its transpose
+    end = sum(L for L in lens[:-1]) * dh * dh               # the state update
+    fwd_macs = 2 * tri + mid + end + 2 * S * dh             # scores, A v; n.q, n update
+    # backward: dA = g v^T, dS k, dS^T q, A^T g; C g (dq), dC v and k dC (dk,
+    # dv), the dC walk. The gate terms come from dA * A with A kept from the
+    # forward; the kernel's recompute of the scores is its own choice, not
+    # counted.
+    bwd_macs = 4 * tri + 2 * mid + 2 * end + 3 * S * dh
+    row = BH * S * dh * 4
+    return (2.0 * BH * fwd_macs, 4.0 * row + 8 * BH * S,
+            2.0 * BH * bwd_macs, 8.0 * row + 16 * BH * S)
+
+
+def phase_k5_times(err: dict) -> list[dict]:
+    """K5 at the xLSTM path's shape (48, 512, 512) fp32: CUDA events and
+    CUDA-graph device time for the kernels and the plain forward; events for
+    the plain backward (autograd through the plain chunk form, its graph
+    kept). No PyTorch call computes an mLSTM: no library yardstick."""
+    import torch
+
+    from repro_torch.kernels import mlstm_chunk as mk
+    from repro_torch.kernels.ref import mlstm_chunk_ref
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    BH, S, dh = 48, 512, 512
+    ins = _mlstm_inputs(BH, S, dh, g)
+    gout = torch.randn(BH, S, dh, generator=g, device="cuda")
+    h, saved = mk.mlstm_forward(*ins)
+    leaves = [t.clone().requires_grad_(True) for t in ins]
+    want_h = mlstm_chunk_ref(*leaves)
+    q = ins[0]
+    fwd_fn = lambda t: mk.mlstm_forward(t, *ins[1:])               # noqa: E731
+    bwd_fn = lambda t: mk.mlstm_backward(t, *ins[1:], h, saved, gout)  # noqa: E731
+    fwd_plain = lambda t: mlstm_chunk_ref(t, *ins[1:])              # noqa: E731
+    bwd_plain = lambda t: torch.autograd.grad(want_h, leaves, gout, retain_graph=True)  # noqa: E731
+    times = {
+        "forward": {"ms": _cuda_ms(fwd_fn, q), "device_ms": _graph_ms(fwd_fn, q),
+                    "plain_ms": _cuda_ms(fwd_plain, q), "plain_device_ms": _graph_ms(fwd_plain, q),
+                    "library_ms": None},
+        "backward": {"ms": _cuda_ms(bwd_fn, q), "device_ms": _graph_ms(bwd_fn, q),
+                     "plain_ms": _cuda_ms(bwd_plain, q), "library_ms": None},
+    }
+    fops, fbytes, bops, bbytes = _mlstm_work(BH, S, dh)
+    times["forward"]["bound_ms"], times["forward"]["bound_by"] = _bound(fbytes, fops)
+    times["backward"]["bound_ms"], times["backward"]["bound_by"] = _bound(bbytes, bops)
+    entries = []
+    for direction in ("forward", "backward"):
+        t = times[direction]
+        print(f"[kernels] mlstm_chunk {direction} at {(BH, S, dh)} fp32: kernel {t['ms']:.4f} ms "
+              f"(device {t['device_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms"
+              + (f" (device {t['plain_device_ms']:.4f} ms)" if "plain_device_ms" in t else "")
+              + f", bound {t['bound_ms']:.4f} ms ({t['bound_by']}; "
+              f"{(fops if direction == 'forward' else bops) / 1e9:.2f} GFLOP)")
+        entries.append({
+            "name": f"mlstm_chunk_{direction}",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mlstm_chunk.cu",
+            "replaces": "src/repro/kernels/mlstm_chunk.py:71",
+            "launches": None,        # filled from the xLSTM run
+            "max_abs_err": err[f"mlstm_chunk_{direction}"],
+            **t,
+        })
+    return entries
 
 
 def main() -> None:
     t0 = time.perf_counter()
     smi = phase_device()
     phase_build()
-    entry = phase_kernels()
-    k2_err = phase_k2()
-    k34_err = phase_k3_k4()
-    k1_launches = phase_main_path()
-    k2_launches = phase_dcor_run()
-    k34_launches = phase_transformer_run()
-    phase_small_reference(RESNET_SMALL + ["--codec", "int8"], "int8")
-    phase_small_reference(RESNET_SMALL + ["--dcor-alpha", "0.5"], "dcor")
-    phase_small_reference(SMOLLM_SMALL, "token-LM")
+    # each phase's GiB: its peak of reserved memory on an H100 80GB HBM3, rounded
+    # up; for the two big runs their peak allocated (53.7, 66.3 GiB) plus room
+    entry = _phase("K1", 1, phase_kernels)
+    k2_err = _phase("K2", 1, phase_k2)
+    k34_err = _phase("K3/K4", 10, phase_k3_k4)
+    k5_err = _phase("K5", 2, phase_k5)
+    k1_launches = _phase("main path", 7, phase_main_path)
+    k2_launches = _phase("dcor run", 5, phase_dcor_run)
+    k34_launches = _phase("transformer run", 60, phase_transformer_run)
+    k35_launches = _phase("xLSTM run", 72, phase_xlstm_run)
+    _phase("int8 reference", 1, phase_small_reference, RESNET_SMALL + ["--codec", "int8"],
+           "int8")
+    _phase("dcor reference", 1, phase_small_reference,
+           RESNET_SMALL + ["--dcor-alpha", "0.5"], "dcor")
+    _phase("token-LM reference", 1, phase_small_reference, SMOLLM_SMALL, "token-LM")
+    # the card read max 0.507 U, 99th percentile 0.166 U, median 0.0040 U at
+    # 320 tokens (H100 80GB HBM3, 700 W), most of it in the mLSTM's wq, wk and
+    # w_up; the max is held to tests/test_torch_xlstm.py's 1 U (the JAX run
+    # against itself from weights moved by one ulp spreads to 0.70 U), the
+    # 99th percentile to 0.3 U, the median to the default 0.01 U
+    _phase("xLSTM reference", 1, partial(phase_small_reference, bounds=(1.0, 0.3, 0.01)),
+           XLSTM_SMALL, "xLSTM token-LM")
     entry["launches"] = k1_launches
-    phase_k1_device_time(entry)
-    k2_fwd, k2_bwd = phase_k2_times(*k2_err)
+    _phase("K1 device time", 1, phase_k1_device_time, entry)
+    k2_fwd, k2_bwd = _phase("K2 times", 1, phase_k2_times, *k2_err)
     k2_fwd["launches"], k2_bwd["launches"] = k2_launches
-    k34 = phase_k3_k4_times(k34_err)
+    k34 = _phase("K3/K4 times", 15, phase_k3_k4_times, k34_err)
     for e in k34:
         e["launches"] = k34_launches[e["name"]]
-    phase_profile()
-    phase_transformer_profile()
+    k5 = _phase("K5 times", 3, phase_k5_times, k5_err)
+    for e in k5:
+        e["launches"] = k35_launches[e["name"]]
+    _phase("K2 profile", 1, phase_k2_profile)
+    _phase("dcor profile", 5, phase_rounds_profile, "dcor run", DCOR_PROFILE_ARGV,
+           {"K2": K2_KERNELS})
+    _phase("transformer profile", 60, phase_rounds_profile, "transformer run",
+           TRANSFORMER_ARGV, {"K3": K3_KERNELS, "K4": K4_KERNELS})
+    _phase("xLSTM profile", 72, phase_rounds_profile, "xLSTM run", XLSTM_ARGV,
+           {"K5": MLSTM_KERNELS, "K3": K3_KERNELS})
 
     import torch
 
-    print(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [entry, k2_fwd, k2_bwd] + k34}))
+    print(f"[done] all phases in {time.perf_counter() - t0:.1f} s, "
+          f"{_card_waited[0]:.1f} s of it waiting for the card")
+    print(json.dumps({"kernels": [entry, k2_fwd, k2_bwd] + k34 + k5}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

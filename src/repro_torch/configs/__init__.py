@@ -12,11 +12,11 @@ from repro_torch.configs.base import ArchConfig  # noqa: F401
 
 _ARCH_MODULES = {
     "smollm-360m": "smollm_360m",
+    "xlstm-350m": "xlstm_350m",
 }
 # the JAX package's other assigned architectures (repro/configs/__init__.py:12)
 _NOT_YET_PORTED = (
-    "whisper-base", "granite-3-2b", "pixtral-12b", "yi-6b", "xlstm-350m",
-    "hymba-1.5b", "deepseek-moe-16b", "deepseek-67b", "llama4-scout-17b-a16e",
+    "whisper-base", "granite-3-2b", "pixtral-12b", "yi-6b", "hymba-1.5b", "deepseek-moe-16b", "deepseek-67b", "llama4-scout-17b-a16e",
 )
 
 

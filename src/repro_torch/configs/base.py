@@ -18,7 +18,7 @@ class ArchConfig:
 
     ``family`` selects the forward implementation:
       dense | moe | ssm | hybrid | encdec (audio) | vlm
-    (the port runs ``dense`` so far).
+    (the port runs ``dense`` and ``ssm`` so far).
     """
 
     name: str

@@ -98,9 +98,11 @@ class ResNetAdapter:
 
 
 class TransformerAdapter:
-    """The transformer archs (dense family so far). ``moe_aux`` is 0 for a
-    dense model; the ``+ 0.01 * moe_aux`` term is kept for the families to
-    come."""
+    """The transformer archs: the dense family (SmolLM-360M) and the xLSTM
+    family (xLSTM-350M: mLSTM blocks on kernel K5, every ``slstm_every``-th
+    an sLSTM block, its ``is_slstm`` flags split and merged with the other
+    stacked leaves). ``moe_aux`` is 0 for both; the ``+ 0.01 * moe_aux``
+    term is kept for the MoE family to come."""
 
     def __init__(self, cfg, *, seq_len: int, cost_cfg=None, dcor_alpha: float = 0.0):
         if dcor_alpha > 0.0:

@@ -53,12 +53,15 @@ def make_scheduler(spec: "str | int", profile: TierProfile, n_clients: int):
 def _value_and_grad(loss_fn, tree):
     """(C,) per-client losses and the gradient of their sum w.r.t. ``tree``.
     The clients' slices share nothing, so each gets exactly its own
-    gradient."""
+    gradient. A leaf the loss does not use (an xLSTM layer's idle cell, the
+    ``is_slstm`` flags) gets exact zeros, as the JAX package's select gives
+    it, so the optimizer, FedAvg and the codecs see the whole tree."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(True) for t in tree_leaves(tree)]
         loss, aux = loss_fn(tree_unflatten(tree, leaves))
-        grads = torch.autograd.grad(loss.sum(), leaves)
-    return loss.detach(), aux, tree_unflatten(tree, list(grads))
+        grads = torch.autograd.grad(loss.sum(), leaves, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)]
+    return loss.detach(), aux, tree_unflatten(tree, grads)
 
 
 class DTFLTrainer:

@@ -7,5 +7,7 @@ its plain PyTorch version in ``ref.py``:
   K3 ``fused_xent.fused_xent`` (forward, backward) replaces
      ``repro/kernels/fused_xent.py:62``;
   K4 ``flash_attention.flash_attention`` (forward, backward) replaces
-     ``repro/kernels/flash_attention.py:75``.
+     ``repro/kernels/flash_attention.py:75``;
+  K5 ``mlstm_chunk.mlstm_chunk`` (forward, backward) replaces
+     ``repro/kernels/mlstm_chunk.py:71``.
 """

@@ -16,6 +16,8 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+# every kernel source of csrc/, one library each
+SOURCES = ("int8_roundtrip", "pairwise_dist", "fused_xent", "flash_attention", "mlstm_chunk")
 BUILD = Path(__file__).resolve().parent / "build"
 # never --use_fast_math: the kernels' bit-equality with their plain
 # versions rests on IEEE division and rounding

@@ -154,3 +154,75 @@ def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool, window: int = 0):
     dq = torch.einsum("nkgqs,nskd->nqkgd", ds, kf) * scale
     dk = torch.einsum("nkgqs,nqkgd->nskd", ds, qg) * scale
     return dq.reshape(N, S, H, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def mlstm_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_f: torch.Tensor,
+              i_gate: torch.Tensor) -> torch.Tensor:
+    """The mLSTM's per-step recurrence (``repro/kernels/ref.py:27``): q, k, v
+    (BH, S, dh); gates (BH, S) -> h (BH, S, dh) in q's dtype.
+
+    ``C_t = f_t C_{t-1} + i_t k_t v_t^T``, ``n_t = f_t n_{t-1} + i_t k_t``,
+    ``h_t = (q_t^T C_t) / max(|n_t . q_t|, 1)``, with ``f_t = exp(log_f_t)``."""
+    BH, S, dh = q.shape
+    dt = torch.promote_types(q.dtype, torch.float32)
+    C = torch.zeros((BH, dh, dh), dtype=dt, device=q.device)
+    n = torch.zeros((BH, dh), dtype=dt, device=q.device)
+    one = torch.ones((), dtype=dt, device=q.device)
+    hs = []
+    for t in range(S):
+        f = torch.exp(log_f[:, t])[:, None, None]
+        ig = i_gate[:, t]
+        C = f * C + ig[:, None, None] * (k[:, t, :, None] * v[:, t, None, :])
+        n = f[:, :, 0] * n + ig[:, None] * k[:, t]
+        num = torch.einsum("bde,bd->be", C, q[:, t])
+        den = torch.maximum(torch.abs(torch.einsum("bd,bd->b", n, q[:, t])), one)
+        hs.append(num / den[:, None])
+    return torch.stack(hs, dim=1).to(q.dtype)
+
+
+MLSTM_CHUNK = 256   # repro/models/ssm.py:25
+
+
+def mlstm_chunk_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_f: torch.Tensor,
+                    i_gate: torch.Tensor, *, chunk: int = MLSTM_CHUNK) -> torch.Tensor:
+    """The chunkwise-parallel mLSTM, from zero state: q, k, v (BH, S, dh);
+    gates (BH, S) -> h (BH, S, dh).
+
+    ``repro/models/ssm.py:52-98`` (``_mlstm_chunk_scan``) in its op order,
+    on the kernel's (BH, S, dh) layout, with its chunk length: the largest
+    divisor of S up to ``chunk`` (``repro/models/ssm.py:59-61``). Per chunk: ``cum = cumsum(log_f)``,
+    ``D = where(s <= t, exp(cum_t - cum_s) * i_s, 0)``,
+    ``h = ((q k^T * D) v + (q C) exp(cum)) / max(|n_t . q_t|, 1)``, then the
+    carried ``C`` and ``n`` move to the chunk's end. Like the reference, it
+    takes ``exp`` over the whole (P, P) and masks after, so with strong
+    forgetting the masked half can overflow (its backward is then NaN)."""
+    BH, S, dh = q.shape
+    P = min(chunk, S)
+    while S % P:
+        P -= 1
+    C = torch.zeros((BH, dh, dh), dtype=q.dtype, device=q.device)
+    n = torch.zeros((BH, dh), dtype=q.dtype, device=q.device)
+    mask = torch.tril(torch.ones((P, P), dtype=torch.bool, device=q.device))
+    # max against a tensor: at a tie its gradient splits evenly, as jnp.maximum's
+    one = torch.ones((), dtype=q.dtype, device=q.device)
+    hs = []
+    for c0 in range(0, S, P):
+        qb, kb, vb = q[:, c0:c0 + P], k[:, c0:c0 + P], v[:, c0:c0 + P]
+        lf, ig = log_f[:, c0:c0 + P], i_gate[:, c0:c0 + P]
+        cum = torch.cumsum(lf, dim=-1)
+        d_in = torch.exp(cum)
+        diff = cum[..., :, None] - cum[..., None, :]
+        D = torch.where(mask, torch.exp(diff) * ig[..., None, :], 0.0)
+        scores = torch.einsum("btd,bsd->bts", qb, kb)
+        intra = torch.einsum("bts,bse->bte", scores * D, vb)
+        inter = torch.einsum("bde,btd->bte", C, qb) * d_in[..., None]
+        num = intra + inter
+        n_intra = torch.einsum("bts,bsd->btd", D, kb)
+        n_t = d_in[..., None] * n[..., None, :] + n_intra
+        denom = torch.maximum(torch.abs(torch.einsum("btd,btd->bt", n_t, qb)), one)
+        hs.append(num / denom[..., None])
+        w = torch.exp(cum[..., -1:] - cum)
+        C = torch.exp(cum[..., -1])[..., None, None] * C + torch.einsum(
+            "bs,bsd,bse->bde", w * ig, kb, vb)
+        n = torch.exp(cum[..., -1])[..., None] * n + torch.einsum("bs,bsd->bd", w * ig, kb)
+    return torch.cat(hs, dim=1)

@@ -9,11 +9,14 @@ on the card unless ``--device cpu``:
       --full-size --clients 10 --rounds 3 --codec int8 --device cuda
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       --full-size --clients 4 --batch-size 4 --seq-len 512 --rounds 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m \\
+      --full-size --clients 3 --batch-size 4 --seq-len 512 --rounds 3
 
 Supported here: DTFL with the cohort plane and the rounds engine; the
 ResNet archs on the image datasets, with the distance-correlation
 regularizer (``--dcor-alpha``, on kernel K2); SmolLM-360M (dense
-transformer, kernels K3 and K4) on the token-LM task, its data built as
+transformer, kernels K3 and K4) and xLSTM-350M (mLSTM cells on kernel K5,
+losses on K3) on the token-LM task, its data built as
 ``repro/api.py:760-786`` builds it; schedulers ``dynamic`` or a fixed tier;
 codecs identity | bf16 | int8. Other archs and datasets fail at parse time,
 other schedulers and codecs when the trainer is built, with "not yet
@@ -37,7 +40,7 @@ from repro_torch.fed.client import HeteroEnv, SimClient
 from repro_torch.fed.dtfl import DTFLTrainer
 
 RESNET_ARCHS = ("resnet-56", "resnet-110", "resnet-bench", "resnet-micro")
-TRANSFORMER_ARCHS = ("smollm-360m",)
+TRANSFORMER_ARCHS = ("smollm-360m", "xlstm-350m")
 ARCHS = RESNET_ARCHS + TRANSFORMER_ARCHS
 # the image datasets of repro/registry.py:309-314 (n_classes, noise, seed)
 DATASETS = {

@@ -1,6 +1,6 @@
 """Public model API of the transformer (pair: ``repro/models/model.py:1``).
 
-Dense family only. The parameter tree keeps the JAX package's keys, with
+Dense and xLSTM families. The parameter tree keeps the JAX package's keys, with
 the blocks stacked on a layer axis so a DTFL tier splits it by slicing
 (``core/tiering.py``)::
 
@@ -100,8 +100,18 @@ def aux_head_apply(aux_params: Params, cfg, z: torch.Tensor) -> torch.Tensor:
 
 
 def count_params_analytic(cfg, active_only: bool = False) -> int:
-    """Parameter count of ``init`` (shapes on the meta device). A dense
-    model's active count is its total; the other families are not yet
-    ported (``init`` raises for them)."""
-    shapes = init(None, cfg, device="meta")
-    return sum(int(math.prod(t.shape)) for t in tree_leaves(shapes))
+    """Parameter count of ``init`` (shapes on the meta device). Active
+    parameters as ``repro/models/model.py:212-227``: a dense model's are
+    its total; an xLSTM stack holds both cells in every layer and uses one,
+    so the unused cell of each layer is taken off."""
+    total = _tree_size(init(None, cfg, device="meta"))
+    if active_only and cfg.family == "ssm" and cfg.slstm_every:
+        n_sl = sum(1 for i in range(cfg.n_layers) if i % cfg.slstm_every == cfg.slstm_every - 1)
+        block = tfm.block_init(None, cfg, device="meta")
+        m_sz, s_sz = _tree_size(block["mlstm"]), _tree_size(block["slstm"])
+        total -= n_sl * m_sz + (cfg.n_layers - n_sl) * s_sz
+    return total
+
+
+def _tree_size(tree) -> int:
+    return sum(int(math.prod(t.shape)) for t in tree_leaves(tree))

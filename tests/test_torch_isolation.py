@@ -85,7 +85,7 @@ def test_unported_options_fail_loudly():
     with pytest.raises(NotImplementedError, match="not yet ported"):
         DTFLTrainer(*_tiny_trainer_args(), device="cpu", scheduler="pairing")
     with pytest.raises(SystemExit):
-        train.build_parser().parse_args(["--arch", "xlstm-350m"])
+        train.build_parser().parse_args(["--arch", "hymba-1.5b"])
     with pytest.raises(NotImplementedError, match="not yet ported"):
         train.main(["--arch", "resnet-micro", "--clients", "2", "--samples", "40",
                     "--codec", "topk0.05", "--device", "cpu"])

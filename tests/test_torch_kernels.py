@@ -9,8 +9,8 @@ JAX, hence ``--noconftest``):
 Tests marked ``cuda`` build and launch the CUDA kernels; they skip where
 ``torch.cuda.is_available()`` is false. The plain versions are held
 against the JAX package in ``test_torch_codec.py`` (K1),
-``test_torch_privacy.py`` (K2) and ``test_torch_attention_xent.py`` (K3,
-K4).
+``test_torch_privacy.py`` (K2), ``test_torch_attention_xent.py`` (K3,
+K4) and ``test_torch_xlstm.py`` (K5).
 
 K3 and K4 tolerances on the card, kernel against plain version on the same
 inputs (both sum in fp32, in other orders):
@@ -26,6 +26,18 @@ inputs (both sum in fp32, in other orders):
   * K3 gradient: fp32 rtol 1e-5, atol 1e-6 of the largest magnitude; bf16
     rtol 1e-2 (one bf16 rounding step, 2**-8, either way), atol 1e-6 of
     the largest magnitude.
+
+K5 tolerances on the card, kernel against the plain chunk form (and
+autograd through it) on the same fp32 inputs, absolute: both sum the same
+products in other orders and with other chunk boundaries (the kernel's
+chunk is 256, the plain form's the largest divisor of S up to 256). At the
+path's shape (48, 512, 512), q ~ N(0, 1), k ~ N(0, 1/dh), v ~ N(0, 1),
+forget gates log_sigmoid(N(3, 1)), input gates sigmoid(N(0, 1)), the
+largest errors measured on the H100 over two seeds are h 4.4e-5 (|h| up
+to 13), dq 2.6e-4 (|dq| up to 31), dv 4.3e-5 (15), dk 3.3e-3, d log_f
+4.0e-3 and d i 3.9e-3 (up to 420); the smaller shapes less. Tolerances:
+h 2e-4, dq 2e-3, dv 2e-4, dk, d log_f and d i 2e-2, about 5x the largest
+error measured and far below a fault's O(1).
 
 K2 tolerances, with their reasons (u = 2**-24, gamma_n = n u / (1 - n u)):
   * forward, off the diagonal: rtol 1e-4, the JAX package's own tolerance
@@ -49,9 +61,10 @@ from repro_torch import privacy
 from repro_torch.kernels import dcor, quantize
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_xent as fx
+from repro_torch.kernels import mlstm_chunk as mk
 from repro_torch.kernels.ref import (D_MIN, attention_bwd_ref, attention_ref,
                                      fused_xent_bwd_ref, fused_xent_ref, int8_roundtrip_ref,
-                                     pairwise_dist_bwd_ref, pairwise_dist_ref)
+                                     mlstm_chunk_ref, pairwise_dist_bwd_ref, pairwise_dist_ref)
 
 U = 2.0 ** -24
 
@@ -395,3 +408,77 @@ def test_fused_xent_kernels_match_plain_on_card(cuda_device, T, V, dtype):
     la = logits.clone().requires_grad_(True)
     (auto,) = torch.autograd.grad((fx.fused_xent(la, labels) * gt).sum(), la)
     assert torch.equal(auto, grad)
+
+
+def _mlstm_inputs(BH, S, dh, g, device):
+    """The path's input distributions (the K5 tolerances above)."""
+    q = torch.randn(BH, S, dh, generator=g, device=device)
+    k = torch.randn(BH, S, dh, generator=g, device=device) / dh ** 0.5
+    v = torch.randn(BH, S, dh, generator=g, device=device)
+    lf = torch.nn.functional.logsigmoid(torch.randn(BH, S, generator=g, device=device) + 3)
+    ig = torch.sigmoid(torch.randn(BH, S, generator=g, device=device))
+    return q, k, v, lf, ig
+
+
+MLSTM_TOL = {"h": 2e-4, "dq": 2e-3, "dk": 2e-2, "dv": 2e-4, "dlf": 2e-2, "dig": 2e-2}
+
+
+def test_mlstm_chunk_wrapper_rejects_what_the_kernel_does_not_take():
+    q, gate = torch.zeros(2, 8, 16), torch.zeros(2, 8)
+    with pytest.raises(ValueError):   # k of another shape
+        mk.mlstm_chunk(q, torch.zeros(2, 8, 8), q, gate, gate)
+    with pytest.raises(ValueError):   # gates not (BH, S)
+        mk.mlstm_chunk(q, q, q, torch.zeros(2, 9), gate)
+    with pytest.raises(TypeError):
+        mk.mlstm_chunk(q.double(), q.double(), q.double(), gate.double(), gate.double())
+    with pytest.raises(ValueError):
+        mk.mlstm_chunk(*(t.to("meta") for t in (q, q, q, gate, gate)))
+    with pytest.raises(ValueError):
+        mk.mlstm_chunk(q.transpose(1, 2).contiguous().transpose(1, 2), q, q, gate, gate)
+    big = torch.zeros(1, 4, 640)
+    with pytest.raises(ValueError):   # dh above 512
+        mk.mlstm_chunk(big, big, big, torch.zeros(1, 4), torch.zeros(1, 4))
+    with pytest.raises(ValueError):   # the kernel-only entry points take no CPU tensor
+        mk.mlstm_forward(q, q, q, gate, gate)
+
+
+def test_mlstm_chunk_on_the_cpu_is_the_plain_form():
+    g = torch.Generator().manual_seed(0)
+    ins = [t.requires_grad_(True) for t in _mlstm_inputs(2, 40, 8, g, "cpu")]
+    before = dict(mk.LAUNCHES)
+    got = mk.mlstm_chunk(*ins)
+    assert torch.equal(got, mlstm_chunk_ref(*ins))
+    torch.autograd.grad(got.sum(), ins)
+    assert mk.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,S,dh", [
+    (48, 512, 512),     # the path: 3 clients x 4 sequences x 4 heads, two chunks
+    (24, 320, 64),      # the reduced model's head dim, a ragged second chunk
+    (3, 96, 32), (3, 200, 128), (2, 300, 256),    # ragged S, every state tile size
+])
+def test_mlstm_chunk_kernels_match_plain_on_card(cuda_device, BH, S, dh):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    ins = _mlstm_inputs(BH, S, dh, g, cuda_device)
+    gout = torch.randn(BH, S, dh, generator=g, device=cuda_device)
+    before = dict(mk.LAUNCHES)
+    leaves = [t.clone().requires_grad_(True) for t in ins]
+    h = mk.mlstm_chunk(*leaves)
+    got = torch.autograd.grad(h, leaves, gout)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES == {"forward": before["forward"] + 5,
+                           "backward": before["backward"] + 7}
+    ref_leaves = [t.clone().requires_grad_(True) for t in ins]
+    want_h = mlstm_chunk_ref(*ref_leaves)
+    want = torch.autograd.grad(want_h, ref_leaves, gout)
+    assert (h - want_h).abs().max() <= MLSTM_TOL["h"]
+    for name, a, b in zip(("dq", "dk", "dv", "dlf", "dig"), got, want):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max() <= MLSTM_TOL[name], name
+    # the backward's sums have a fixed order: the same bits every run
+    hh, saved = mk.mlstm_forward(*ins)
+    again = mk.mlstm_backward(*ins, hh, saved, gout)
+    assert torch.equal(hh, h.detach())
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
