@@ -11,7 +11,10 @@ Phases (any failure exits non-zero and prints no result line):
      gives them; turn TF32 off for matmuls and cuDNN.
   2. build: compile every kernel source from this checkout with nvcc for
      sm_90a, one nvcc per source, all started together, and print the
-     build time and ptxas report.
+     build time and ptxas report; then one line per K4 kernel: registers,
+     shared memory and spills (ptxas) and HMMA instructions (``cuobjdump
+     -sass``). Every bf16 K4 kernel must have HMMA, and the hd-64 ones, the
+     path's, must spill nothing.
   3. kernels: hold each kernel against its plain PyTorch version on the
      card at the shapes its path gives it (bit equality for K1, stated
      tolerances for K2); time K1, its plain version and one PyTorch
@@ -41,9 +44,12 @@ Phases (any failure exits non-zero and prints no result line):
      busy share, K2's share, the top kernels), printed only.
   8. K3 and K4 (fused cross-entropy, flash attention), forward and
      backward, against their plain versions on the card at the transformer
-     path's shapes and at ragged ones (the absolute tolerances of
-     tests/test_torch_kernels.py: K4 fp32 2e-5 forward and 1e-4 backward,
-     bf16 rtol 2e-2 with atol 1e-2; K3 loss 2e-4).
+     path's shapes and at ragged ones, K4's every shape in bf16 and fp32
+     (the absolute tolerances of tests/test_torch_kernels.py: K4 fp32 2e-5
+     forward and 1e-4 backward, bf16 rtol 2e-2 with atol 1e-2; K3 loss
+     2e-4); K4's backward must be bit-identical run to run. At the path's
+     bf16 shape it also prints what K4's split of dS into bf16 hi + lo
+     keeps against dS rounded to one bf16.
   9. transformer run: the same entry point on full-width SmolLM-360M (32
      layers, d_model 960, 15 query heads over 5 KV heads, d_ff 2560, vocab
      49,152, 8 modules, 7 tiers; weights random from seed 0), 4 clients,
@@ -55,9 +61,9 @@ Phases (any failure exits non-zero and prints no result line):
  11. K3 and K4 times as K2's, beside the bound (bytes over the memory
      rate, or bf16 products over the tensor-core rate) and one PyTorch
      call each (``F.cross_entropy``, ``F.scaled_dot_product_attention``),
-     timed only; then torch.profiler over two rounds of the transformer
-     run (device busy share, K3's and K4's shares, the top kernels),
-     printed only.
+     timed only, by events and in CUDA graphs; then torch.profiler over
+     two rounds of the transformer run (device busy share, K3's and K4's
+     shares, the top kernels), printed only.
  12. K5 (the mLSTM chunk kernels), forward and backward, against the plain
      chunk form and autograd through it on the card, at the xLSTM path's
      shape (48, 512, 512), the reduced model's (24, 320, 64) and ragged
@@ -98,6 +104,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from functools import partial
+from itertools import product
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -208,6 +215,81 @@ def phase_build():
     print(f"[build] {', '.join(names)} in parallel: {time.perf_counter() - t0:.2f} s")
     for name in names:
         print(nvcc.library_path(name).with_suffix(".log").read_text().strip())
+    k4_build_report()
+
+
+def _ptxas_report(log: str) -> dict:
+    """{mangled kernel: {"registers", "spill_stores", "spill_loads"}} from an
+    ``-Xptxas -v`` log."""
+    import re
+
+    out, cur = {}, None
+    for line in log.splitlines():
+        if m := re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line):
+            cur = out.setdefault(m.group(1), {})
+        elif cur is not None and (
+                m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        elif cur is not None and (m := re.search(r"Used (\d+) registers", line)):
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def _hmma_counts(lib: Path) -> dict:
+    """{mangled kernel: number of HMMA instructions} in ``cuobjdump -sass``."""
+    from repro_torch.kernels import nvcc
+
+    sass = subprocess.run([str(Path(nvcc.nvcc_path()).parent / "cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            cur = line.split("Function : ", 1)[1].strip()
+            counts[cur] = 0
+        elif cur is not None and "HMMA" in line:
+            counts[cur] += 1
+    return counts
+
+
+def k4_build_report() -> None:
+    """K4's kernels as built: registers, shared memory, spills (the ptxas
+    report) and HMMA instructions (the SASS). Fails unless every bf16
+    kernel (``flash_mma_*``) runs its products on the tensor cores and the
+    hd-64 bf16 kernels, the path's, spill nothing."""
+    import ctypes
+    import re
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import nvcc
+
+    lib_path = nvcc.library_path("flash_attention")
+    ptxas = _ptxas_report(lib_path.with_suffix(".log").read_text())
+    hmma = _hmma_counts(lib_path)
+    lib = fa.load_library()
+    lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
+    lib.flash_attention_smem_bytes.restype = ctypes.c_int
+    kinds = {"fwd": 0, "bwd_dq": 1, "bwd_dkdv": 2}
+    seen = 0
+    for mangled, info in sorted(ptxas.items()):
+        m = re.search(r"\d(flash_(?:mma_)?(fwd|bwd_dq|bwd_dkdv))I(f?)Li(\d+)E", mangled)
+        if m is None:
+            continue
+        name, kind, fp32, hd = m.group(1), m.group(2), m.group(3) == "f", int(m.group(4))
+        bf16 = name.startswith("flash_mma_")
+        n_hmma = hmma.get(mangled)
+        dyn = lib.flash_attention_smem_bytes(kinds[kind], hd, int(bf16))
+        print(f"[build] K4 {name}<{'fp32' if fp32 else 'bf16'}, hd {hd}>: "
+              f"{info['registers']} registers, {dyn} bytes of (dynamic) shared memory, "
+              f"spills {info['spill_stores']} / {info['spill_loads']} bytes (stores / loads), "
+              f"{n_hmma} HMMA")
+        if bf16 and not n_hmma:
+            fail(f"{name}<{hd}> has no HMMA instruction: its products are not on the tensor cores")
+        if bf16 and hd == 64 and (info["spill_stores"] or info["spill_loads"]):
+            fail(f"{name}<64> spills registers")
+        seen += bf16
+    if seen != 9:
+        fail(f"expected 9 bf16 K4 kernels (3 kernels x hd 32/64/128) in the build log, "
+             f"found {seen}")
 
 
 def _bound(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S
@@ -622,7 +704,8 @@ def _profile(fn):
 
 K2_KERNELS = ("gram_partial", "gram_finish", "dist_backward")
 K3_KERNELS = ("xent_fwd", "xent_bwd")
-K4_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")
+K4_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv",       # fp32
+              "flash_mma_fwd", "flash_mma_bwd_dq", "flash_mma_bwd_dkdv")  # bf16
 
 
 def phase_k2_profile() -> None:
@@ -763,16 +846,22 @@ def phase_k1_device_time(entry: dict) -> None:
           f"plain device {entry['plain_device_ms']:.4f} ms")
 
 
-# K4 cases: (N, S, H, KV, hd, causal, window, dtype); the first two are the
-# path's (16 sequences of 512 tokens, 15 query heads over 5 KV heads, hd 64)
+# K4 cases: (N, S, H, KV, hd, causal, window), each in bf16 and fp32; the
+# first is the path's (16 sequences of 512 tokens, 15 query heads over 5 KV
+# heads, hd 64); the rows of tests/test_torch_kernels.py
 ATTN_CASES = [
-    ("path, bf16", 16, 512, 15, 5, 64, True, 0, "bfloat16"),
-    ("path, fp32", 16, 512, 15, 5, 64, True, 0, "float32"),
-    ("window 128", 4, 512, 15, 5, 64, True, 128, "bfloat16"),
-    ("ragged S = 200", 3, 200, 6, 2, 64, True, 0, "float32"),
-    ("G = 1", 3, 200, 4, 4, 64, True, 0, "float32"),
-    ("reduced model, hd 32", 16, 64, 4, 4, 32, True, 0, "bfloat16"),
+    ("path", 16, 512, 15, 5, 64, True, 0),
+    ("window 128", 4, 512, 15, 5, 64, True, 128),
+    ("ragged S = 200", 3, 200, 6, 2, 64, True, 0),
+    ("G = 1", 3, 200, 4, 4, 64, True, 0),
+    ("full attention", 2, 130, 4, 2, 64, False, 0),
+    ("window without causality", 2, 96, 4, 2, 64, False, 40),
+    ("reduced model, hd 32", 16, 64, 4, 4, 32, True, 0),
+    ("hd 128", 2, 150, 4, 1, 128, True, 0),
+    ("hd 40", 2, 70, 3, 3, 40, True, 0),
+    ("hd 20, element-wise staging", 2, 90, 4, 2, 20, True, 0),
 ]
+ATTN_DTYPES = ("bfloat16", "float32")
 # K3 cases: (T, V, dtype): the path's heads, the ResNet's classifier, ragged
 XENT_CASES = [
     ("path heads", 8_192, 49_152, "bfloat16"),
@@ -789,6 +878,41 @@ def _close(got, want, rtol: float, atol: float) -> tuple[bool, float]:
     return bool((diff <= atol + rtol * want.abs()).all()), float(diff.max())
 
 
+def _ds_rounding(q, k, v, o, lse, do, grads) -> None:
+    """What K4's bf16 backward keeps of dS: its dq and dk against the plain
+    backward with fp32 outputs (dS in fp32), beside the plain version's own
+    bf16 outputs and a plain backward whose dS is rounded to bf16, as one
+    bf16 product per dQ and dK step would have it (fp32 and bf16 outputs).
+    Printed only: the max |diff| of each, and max |want|."""
+    import math
+
+    import torch
+
+    from repro_torch.kernels.ref import _grouped, _visible, attention_bwd_ref
+
+    N, S, H, hd = q.shape
+    KV = k.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    qg, dog, kf = _grouped(q, KV), _grouped(do, KV), k.float()
+    D = (do.float() * o.float()).sum(-1).reshape(N, S, KV, H // KV).permute(0, 2, 3, 1)
+    s = torch.einsum("nqkgd,nskd->nkgqs", qg, kf) * scale
+    p = torch.where(_visible(S, True, 0, q.device),
+                    torch.exp(s - lse.reshape(N, KV, H // KV, S)[..., None]), 0.0)
+    ds = p * (torch.einsum("nqkgd,nskd->nkgqs", dog, v.float()) - D[..., None])
+    plain = attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+    products = {"dq": lambda x: torch.einsum("nkgqs,nskd->nqkgd", x, kf).reshape(N, S, H, hd),
+                "dk": lambda x: torch.einsum("nkgqs,nqkgd->nskd", x, qg)}
+    for i, (name, product) in enumerate(products.items()):
+        want, one_bf16 = (product(x) * scale for x in (ds, ds.bfloat16().float()))
+        err = {"kernel (dS as bf16 hi + lo)": grads[i], "plain, bf16 output": plain[i],
+               "dS as one bf16, bf16 output": one_bf16.bfloat16(),
+               "dS as one bf16, fp32 output": one_bf16}
+        print(f"[kernels]   dS rounding, path bf16, {name} against the fp32-output plain "
+              f"backward (max |want| {float(want.abs().max()):.4g}), max |diff|: "
+              + ", ".join(f"{label} {float((x.float() - want).abs().max()):.4g}"
+                          for label, x in err.items()))
+
+
 def phase_k3_k4() -> dict:
     """K3 and K4, forward and backward, against their plain versions on the
     same inputs (the tolerances of tests/test_torch_kernels.py). Returns
@@ -803,7 +927,7 @@ def phase_k3_k4() -> dict:
     g = torch.Generator(device="cuda").manual_seed(4)
     err = {"flash_attention_forward": 0.0, "flash_attention_backward": 0.0,
            "fused_xent_forward": 0.0, "fused_xent_backward": 0.0}
-    for label, N, S, H, KV, hd, causal, window, dt in ATTN_CASES:
+    for (label, N, S, H, KV, hd, causal, window), dt in product(ATTN_CASES, ATTN_DTYPES):
         dtype = getattr(torch, dt)
         q = torch.randn(N, S, H, hd, generator=g, device="cuda").to(dtype)
         k = torch.randn(N, S, KV, hd, generator=g, device="cuda").to(dtype)
@@ -811,12 +935,17 @@ def phase_k3_k4() -> dict:
         do = torch.randn(N, S, H, hd, generator=g, device="cuda").to(dtype)
         o, lse = fa.attn_forward(q, k, v, causal=causal, window=window)
         grads = fa.attn_backward(q, k, v, o, lse, do, causal=causal, window=window)
+        again = fa.attn_backward(q, k, v, o, lse, do, causal=causal, window=window)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            fail(f"flash_attention backward is not bit-identical run to run on {label} {dt}")
         o_want, lse_want = attention_ref(q, k, v, causal=causal, window=window)
         want = attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window)
-        # (rtol, atol): fp32 as tests/test_kernels.py:27; bf16 measured at
-        # 4e-3 (forward) and 2e-3 (backward) on the H100, so 1e-2 absolute
-        # leaves room and still catches a bf16 fault of a typical output's size
+        # (rtol, atol): fp32 as tests/test_kernels.py:27; bf16 measured on the
+        # H100 at 3.9e-3 forward and 1.6e-2 backward, one bf16 step of a
+        # gradient of magnitude 2-4 (the plain version's own output rounding
+        # differs from fp32 as much), inside 1e-2 + 2e-2 |want| with room; a
+        # bf16 fault of a typical output's size still fails
         fwd_tol, bwd_tol = (((2e-5, 2e-5), (1e-4, 1e-4)) if dtype == torch.float32
                             else ((2e-2, 1e-2), (2e-2, 1e-2)))
         ok, fwd = _close(o, o_want, *fwd_tol)
@@ -833,7 +962,10 @@ def phase_k3_k4() -> dict:
         err["flash_attention_forward"] = max(err["flash_attention_forward"], fwd)
         err["flash_attention_backward"] = max(err["flash_attention_backward"], bwd)
         print(f"[kernels] flash_attention {label} {(N, S, H, KV, hd)} {dt} causal={causal} "
-              f"window={window}: forward max |diff| {fwd:.3g}, backward max |diff| {bwd:.3g}")
+              f"window={window}: forward max |diff| {fwd:.3g}, backward max |diff| {bwd:.3g}, "
+              f"backward bit-identical run to run")
+        if label == "path" and dtype == torch.bfloat16:
+            _ds_rounding(q, k, v, o, lse, do, grads)
     for label, T, V, dt in XENT_CASES:
         dtype = getattr(torch, dt)
         logits = (3 * torch.randn(T, V, generator=g, device="cuda")).to(dtype)
@@ -927,8 +1059,9 @@ def phase_transformer_run() -> dict:
 
 def phase_k3_k4_times(err: dict) -> list[dict]:
     """K3 and K4 times at the path's shapes: CUDA events and CUDA-graph
-    device time for the kernels and plain versions, events for the library
-    yardsticks (timed here, never called by the port)."""
+    device time for the kernels, their plain versions and the library
+    yardsticks (timed here, never called by the port; a backward yardstick
+    is its forward and autograd's backward, both captured)."""
     import torch
     import torch.nn.functional as F
 
@@ -955,15 +1088,18 @@ def phase_k3_k4_times(err: dict) -> list[dict]:
     fwd_plain = partial(attention_ref, k=k, v=v, causal=True)
     bwd_plain = partial(attention_bwd_ref, k=k, v=v, o=o, lse=lse, do=do, causal=True)
     dot = do.transpose(1, 2)
+    lib_fwd = lambda t: sdpa(t, kt, vt)                                          # noqa: E731
+    lib_bwd = lambda t: torch.autograd.grad(sdpa(t, kr, vr), (t, kr, vr), dot)  # noqa: E731
     attn = {
         "forward": {"ms": _cuda_ms(fwd_fn, q), "device_ms": _graph_ms(fwd_fn, q),
                     "plain_ms": _cuda_ms(fwd_plain, q), "plain_device_ms": _graph_ms(fwd_plain, q),
-                    "library_ms": _cuda_ms(lambda t: sdpa(t, kt, vt), qt)},
+                    "library_ms": _cuda_ms(lib_fwd, qt),
+                    "library_device_ms": _graph_ms(lib_fwd, qt)},
         "backward": {"ms": _cuda_ms(bwd_fn, q), "device_ms": _graph_ms(bwd_fn, q),
                      "plain_ms": _cuda_ms(bwd_plain, q),
                      "plain_device_ms": _graph_ms(bwd_plain, q),
-                     "library_ms": _cuda_ms(lambda t: torch.autograd.grad(
-                         sdpa(t, kr, vr), (t, kr, vr), dot), qr)},
+                     "library_ms": _cuda_ms(lib_bwd, qr),
+                     "library_device_ms": _graph_ms(lib_bwd, qr)},
     }
     pairs = N * H * S * (S + 1) // 2                 # causal (query, key) pairs
     q_bytes, kv_bytes, lse_bytes = 2 * N * S * H * hd, 2 * N * S * KV * hd, 4 * N * H * S
@@ -983,17 +1119,19 @@ def phase_k3_k4_times(err: dict) -> list[dict]:
     xbwd = partial(fx.xent_backward, labels=labels, lse=xlse, g=gt)
     xfwd_plain = partial(fused_xent_ref, labels=labels)
     xbwd_plain = partial(fused_xent_bwd_ref, labels=labels, lse=xlse, g=gt)
+    xlib_fwd = partial(F.cross_entropy, target=labels, reduction="none")
+    xlib_bwd = lambda t: torch.autograd.grad(xlib_fwd(t), t, gt)                # noqa: E731
     xent = {
         "forward": {"ms": _cuda_ms(xfwd, logits), "device_ms": _graph_ms(xfwd, logits),
                     "plain_ms": _cuda_ms(xfwd_plain, logits),
                     "plain_device_ms": _graph_ms(xfwd_plain, logits),
-                    "library_ms": _cuda_ms(lambda t: F.cross_entropy(t, labels, reduction="none"),
-                                           logits)},
+                    "library_ms": _cuda_ms(xlib_fwd, logits),
+                    "library_device_ms": _graph_ms(xlib_fwd, logits)},
         "backward": {"ms": _cuda_ms(xbwd, logits), "device_ms": _graph_ms(xbwd, logits),
                      "plain_ms": _cuda_ms(xbwd_plain, logits),
                      "plain_device_ms": _graph_ms(xbwd_plain, logits),
-                     "library_ms": _cuda_ms(lambda t: torch.autograd.grad(
-                         F.cross_entropy(t, labels, reduction="none"), t, gt), lr)},
+                     "library_ms": _cuda_ms(xlib_bwd, lr),
+                     "library_device_ms": _graph_ms(xlib_bwd, lr)},
     }
     xent["forward"]["bound_ms"], xent["forward"]["bound_by"] = _bound(
         2 * T * V + 8 * T + 8 * T, 3 * T * V)
@@ -1008,8 +1146,9 @@ def phase_k3_k4_times(err: dict) -> list[dict]:
             t = times[direction]
             print(f"[kernels] {name} {direction} at {shape}: kernel {t['ms']:.4f} ms (device "
                   f"{t['device_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms (device "
-                  f"{t['plain_device_ms']:.4f} ms), library {t['library_ms']:.4f} ms, bound "
-                  f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+                  f"{t['plain_device_ms']:.4f} ms), library {t['library_ms']:.4f} ms (device "
+                  f"{t['library_device_ms']:.4f} ms), bound {t['bound_ms']:.4f} ms "
+                  f"({t['bound_by']})")
             entries.append({
                 "name": f"{name}_{direction}",
                 "route": "cuda",

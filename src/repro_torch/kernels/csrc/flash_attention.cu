@@ -24,28 +24,52 @@
 // Bound. On the path (N*H = 16*15, S = 512, hd = 64, causal, bf16) the
 // forward reads q, k, v and writes o, ~42 MB, against ~8 GFLOP of products:
 // ~0.013 ms by bytes at the H100's 3.35 TB/s, ~0.008 ms by the 989 TFLOP/s
-// bf16 tensor-core rate. This first version runs the products on the fp32
-// FMA units (67 TFLOP/s), so it is bound by operations, ~0.12 ms, and more
-// by its shared-memory loads (two per two FMAs in the score loop). Tensor
-// cores (mma.sync / wgmma) are later work.
+// bf16 tensor-core rate; the backward ~0.025 ms by bytes, ~0.020 ms by its
+// five products. The softmax's exp (one MUFU op an element, 16 a clock on
+// an SM) and the shared-memory reads of the K/V fragments (each warp reads
+// the whole tile) cost about as much as the products at this width.
 //
-// Design. A block of 256 threads owns a 64-row tile of queries of one head
-// (forward, dQ) or a 64-row tile of keys of one KV head (dK/dV). Tiles are
-// staged in shared memory as fp32 with rows padded to hd + 1 words (no bank
-// conflicts on column walks). Each thread owns a 4 x 4 micro-tile of the
-// 64 x 64 score tile: rows 4*(t/16)..+3, columns t%16 + 16j, so a row's 16
-// owners are 16 lanes of one warp and row reductions are shuffles within
-// them. Causal and window limits skip whole tiles outside the mask. The
+// bf16: the tensor cores (namespace tc, flash_mma_*). mma.sync m16n8k16
+// (bf16 in, fp32 accumulate) with operands from shared memory by ldmatrix
+// (.trans for the right-hand operand of P V, dS K, P^T dO and dS^T Q). A
+// block of 4 warps owns a 64-row tile of queries of one head (forward,
+// dQ) or of keys of one KV head (dK/dV), each warp 16 rows; the other
+// operand streams through a two-stage ring of 64-row bf16 tiles filled by
+// cp.async 16 bytes a thread, the next tile in flight while this one is
+// computed. Rows are padded by 16 bytes, so ldmatrix has no bank
+// conflicts. The scores' accumulator layout is the A layout of the next
+// product, so P (and dS) go from registers to the tensor cores without a
+// trip through shared memory; row max and sum are shuffles within a quad.
+// exp is exp2f of one FFMA (the row max kept unscaled, as FlashAttention-2
+// does). dS stays fp32 as in the plain version: it enters dQ and dK as two
+// bf16 products, hi = bf16(dS) and lo = bf16(dS - hi), ~16 bits of its
+// mantissa; P enters dV as bf16, as in the forward. Masks are applied only
+// to tiles the band or the ragged edge cuts. The forward and dQ launch the
+// q tiles with the most keys first.
+//
+// fp32: the FMA units (flash_fwd, flash_bwd_dq, flash_bwd_dkdv). TF32
+// tensor cores would keep 10 bits of each product's inputs and break the
+// fp32 tolerances (2e-5 forward, 1e-4 backward); the fp32 path is a test
+// and small-model path, not the model's (bf16). A block of 256 threads owns
+// a 64-row tile, staged in shared memory as fp32 with rows padded to hd + 1
+// words; each thread owns a 4 x 4 micro-tile of the 64 x 64 score tile
+// (rows 4*(t/16)..+3, columns t%16 + 16j), so a row's 16 owners are 16
+// lanes of one warp and row reductions are shuffles within them.
+//
+// Both: causal and window limits skip whole tiles outside the mask. The
 // dK/dV kernel sums the G query heads of its group and every q tile in a
 // fixed order, and every output element has one writer: no float atomics,
 // the results do not change from run to run.
 //
-// Build without --use_fast_math (expf, logf and IEEE division as written).
+// Build without --use_fast_math (expf, exp2f, logf and IEEE division as
+// written).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 namespace {
 
@@ -54,13 +78,9 @@ constexpr int kBK = 64;          // key rows per tile
 constexpr int kThreads = 256;    // 16 row groups x 16 column lanes
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // the cast of p to v's dtype (a no-op for fp32)
 template <typename T> __device__ __forceinline__ float round_to(float x) {
@@ -467,6 +487,598 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv(
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores (see the note at the top). Each thread holds two
+// rows of its warp's 16 (g and g + 8, g = lane / 4) and, of every 8-column
+// accumulator tile, columns 2t and 2t + 1 (t = lane % 4).
+// ---------------------------------------------------------------------------
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kB = 64;                 // rows per tile, queries or keys
+constexpr int kThreads = 128;          // 4 warps x 16 rows
+constexpr float kLog2e = 1.4426950408889634f;
+// bf16 per shared row: 16 bytes of padding, so that the 8 rows an ldmatrix
+// reads start in 8 different 16-byte bank groups (no bank conflicts)
+template <int HD> __host__ __device__ constexpr int ld() { return HD + 8; }
+template <int HD> __host__ __device__ constexpr int tile_bytes() { return kB * ld<HD>() * 2; }
+template <int HD> constexpr int fwd_smem() { return 5 * tile_bytes<HD>(); }  // Q, 2 x (K, V)
+template <int HD> constexpr int dq_smem() { return 6 * tile_bytes<HD>(); }   // Q, dO, 2 x (K, V)
+template <int HD> constexpr int dkdv_smem() {   // K, V, 2 x (Q, dO, lse, D)
+  return 6 * tile_bytes<HD>() + 4 * kB * 4;
+}
+
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared: `bytes` of them copied, the rest zero-filled
+__device__ __forceinline__ void cp16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr(dst)), "l"(src),
+               "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(saddr(dst)), "l"(src),
+               "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(saddr(p)) : "memory");
+}
+__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(saddr(p)) : "memory");
+}
+// c (16 x 8, fp32) += a (16 x 16) b (16 x 8)
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// two floats as a bf16 pair, the first in the low half (the lower column)
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Fragment addresses in a row-major tile of LD bf16 per row, for one lane.
+// A (16 x 16) at rows r0.., columns c0..: registers a0..a3 of the mma.
+template <int LD>
+__device__ __forceinline__ const bf16* frag_a(const bf16* s, int r0, int c0, int lane) {
+  return s + (r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8;
+}
+// B of two n8 tiles from a tile stored [n][k] (rows n0..n0+15, columns
+// c0..c0+15 the depth): {b0, b1} of tile n0, then of tile n0 + 8
+template <int LD>
+__device__ __forceinline__ const bf16* frag_b(const bf16* s, int n0, int c0, int lane) {
+  return s + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LD + c0 + ((lane >> 3) & 1) * 8;
+}
+// B of two n8 tiles from a tile stored [k][n] (rows k0..k0+15 the depth,
+// columns n0..n0+15), read with ldmatrix .trans
+template <int LD>
+__device__ __forceinline__ const bf16* frag_bt(const bf16* s, int k0, int n0, int lane) {
+  return s + (k0 + (lane & 7) + (((lane >> 3) & 1) << 3)) * LD + n0 + (lane >> 4) * 8;
+}
+
+// Rows [r0, r0 + 64) of one head into a 64 x LD tile, zero beyond S and hd.
+// vec: hd % 8 == 0 and 16-byte aligned tensors, so cp.async 16 bytes at a
+// time; otherwise element by element (synchronous; visible at the next
+// __syncthreads, as the copies are).
+template <int HD>
+__device__ __forceinline__ void load_tile(bf16* sm, const bf16* __restrict__ base,
+                                          long long stride, int r0, int S, int hd, bool vec) {
+  constexpr int CPR = HD / 8;          // 16-byte chunks per row
+  for (int i = threadIdx.x; i < kB * CPR; i += kThreads) {
+    const int r = i / CPR, d = (i % CPR) * 8, s = r0 + r;
+    bf16* dst = sm + r * ld<HD>() + d;
+    if (vec) {
+      const bool in = s < S && d < hd;
+      cp16(dst, in ? base + s * stride + d : base, in ? 16 : 0);
+    } else {
+      __align__(16) bf16 e[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        e[j] = (s < S && d + j < hd) ? base[s * stride + d + j] : __float2bfloat16_rn(0.f);
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(e);
+    }
+  }
+}
+
+// A 64 x LD tile to rows [r0, r0 + 64) of one head, rows < S and d < hd only.
+template <int HD>
+__device__ __forceinline__ void store_tile(bf16* __restrict__ base, long long stride, int r0,
+                                           int S, int hd, const bf16* sm, bool vec) {
+  constexpr int CPR = HD / 8;
+  for (int i = threadIdx.x; i < kB * CPR; i += kThreads) {
+    const int r = i / CPR, d = (i % CPR) * 8, s = r0 + r;
+    if (s >= S || d >= hd) continue;
+    const bf16* src = sm + r * ld<HD>() + d;
+    if (vec) {
+      *reinterpret_cast<uint4*>(base + s * stride + d) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int j = 0; j < 8 && d + j < hd; ++j) base[s * stride + d + j] = src[j];
+    }
+  }
+}
+
+// A warp's 16 x HD accumulator, times f, as bf16 into its rows of a tile.
+template <int HD>
+__device__ __forceinline__ void acc_to_tile(bf16* sm, const float (&acc)[HD / 8][4], float f,
+                                            int warp, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < HD / 8; ++nt) {
+    bf16* p = sm + (warp * 16 + g) * ld<HD>() + nt * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(p) = pack(acc[nt][0] * f, acc[nt][1] * f);
+    *reinterpret_cast<uint32_t*>(p + 8 * ld<HD>()) = pack(acc[nt][2] * f, acc[nt][3] * f);
+  }
+}
+
+// does the mask cut the (q0, k0) tile pair (or its ragged edge)?
+__device__ __forceinline__ bool cut(int q0, int k0, int S, int causal, int window) {
+  return q0 + kB > S || k0 + kB > S || (causal && k0 + kB - 1 > q0) ||
+         (window && q0 + kB - 1 - k0 >= window);
+}
+
+// The A fragment (16 x 16 over columns 16kk..16kk+15) of a warp's 16 x 64
+// fp32 accumulator, as bf16: the accumulator layout of two adjacent n8
+// tiles is the A layout of one k16 step.
+__device__ __forceinline__ void frag_of(uint32_t (&a)[4], const float (&x)[8][4], int kk) {
+  a[0] = pack(x[2 * kk][0], x[2 * kk][1]);
+  a[1] = pack(x[2 * kk][2], x[2 * kk][3]);
+  a[2] = pack(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+  a[3] = pack(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+}
+// the same split in two: hi = bf16(x), lo = bf16(x - hi), so hi + lo
+// carries ~16 bits of x's mantissa through the bf16 products
+__device__ __forceinline__ void frag_split(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                           const float (&x)[8][4], int kk) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float* v = x[2 * kk + (i >> 1)] + 2 * (i & 1);
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[0], v[1]);
+    hi[i] = *reinterpret_cast<const uint32_t*>(&h);
+    lo[i] = pack(v[0] - __low2float(h), v[1] - __high2float(h));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward: one block per (q tile, head), the q tiles with the most keys first
+// ---------------------------------------------------------------------------
+template <int HD>
+__global__ void __launch_bounds__(kThreads) flash_mma_fwd(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    bf16* __restrict__ o, float* __restrict__ lse, int N, int S, int H, int KV, int hd,
+    int causal, int window, float scale, int vec) {
+  constexpr int LD = ld<HD>(), NT = HD / 8, KS = HD / 16, T = kB * LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sK = sQ + T;               // two stages
+  bf16* sV = sK + 2 * T;           // two stages
+  const int heads = N * H, nqt = (S + kB - 1) / kB;
+  const int q0 = (nqt - 1 - static_cast<int>(blockIdx.x) / heads) * kB;
+  const int n = (blockIdx.x % heads) / H, h = blockIdx.x % H, kvh = h / (H / KV);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const long long qstride = static_cast<long long>(H) * hd;
+  const long long kstride = static_cast<long long>(KV) * hd;
+  const bf16* qb = q + (static_cast<long long>(n) * S * H + h) * hd;
+  const bf16* kb = k + (static_cast<long long>(n) * S * KV + kvh) * hd;
+  const bf16* vb = v + (static_cast<long long>(n) * S * KV + kvh) * hd;
+
+  const int k_end = causal ? min(S, q0 + kB) : S;
+  const int kt0 = (window ? max(0, q0 - window + 1) : 0) / kB;
+  const int nk = (k_end + kB - 1) / kB - kt0;
+  load_tile<HD>(sQ, qb, qstride, q0, S, hd, vec);
+  load_tile<HD>(sK, kb, kstride, kt0 * kB, S, hd, vec);
+  load_tile<HD>(sV, vb, kstride, kt0 * kB, S, hd, vec);
+  cp_commit();
+
+  uint32_t qf[KS][4];
+  float acc[NT][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < NT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  const int row0 = q0 + warp * 16 + g;       // this thread's rows: row0, row0 + 8
+  const float sl2 = scale * kLog2e;
+
+  for (int it = 0; it < nk; ++it) {
+    const int k0 = (kt0 + it) * kB;
+    const bf16* cK = sK + (it & 1) * T;
+    const bf16* cV = sV + (it & 1) * T;
+    if (it + 1 < nk) {          // the next tile flies while this one is computed
+      load_tile<HD>(sK + ((it + 1) & 1) * T, kb, kstride, k0 + kB, S, hd, vec);
+      load_tile<HD>(sV + ((it + 1) & 1) * T, vb, kstride, k0 + kB, S, hd, vec);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) ldsm(qf[kk], frag_a<LD>(sQ, warp * 16, kk * 16, lane));
+    }
+
+    // S = Q K^T: 16 rows x 64 keys a warp
+    float s[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t b[4];
+        ldsm(b, frag_b<LD>(cK, j * 16, kk * 16, lane));
+        mma(s[2 * j], qf[kk], b[0], b[1]);
+        mma(s[2 * j + 1], qf[kk], b[2], b[3]);
+      }
+
+    // online softmax over the tile, statistics in registers: m is the raw
+    // row max, p = 2^(s sl2 - m sl2) with sl2 = scale log2(e), one FFMA and
+    // one EX2 an element
+    const bool masked = cut(q0, k0, S, causal, window);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m[r];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[nt][2 * r + e];
+          if (masked && !visible(row0 + 8 * r, k0 + nt * 8 + 2 * t + e, S, causal, window))
+            x = -INFINITY;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // nothing visible in this row so far: every p and alpha is 2^-inf = 0
+      const float mb = mx == -INFINITY ? 0.f : mx * sl2;
+      const float alpha = exp2f(m[r] * sl2 - mb);
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[nt][2 * r + e];
+          x = exp2f(fmaf(x, sl2, -mb));
+          sum += x;
+        }
+      l[r] = alpha * l[r] + sum;     // this thread's share; the quad's sum at the end
+      m[r] = mx;
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        acc[i][2 * r] *= alpha;
+        acc[i][2 * r + 1] *= alpha;
+      }
+    }
+
+    // O += bf16(P) V, P straight from the registers
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t a[4];
+      frag_of(a, s, kk);
+#pragma unroll
+      for (int dj = 0; dj < KS; ++dj) {
+        uint32_t b[4];
+        ldsm_t(b, frag_bt<LD>(cV, kk * 16, dj * 16, lane));
+        mma(acc[2 * dj], a, b[0], b[1]);
+        mma(acc[2 * dj + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();             // this stage is read; the next copy may land in it
+  }
+
+  float lc[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    lc[r] = fmaxf(l[r], 1e-30f);
+    const int row = row0 + 8 * r;
+    if (t == 0 && row < S)
+      lse[(static_cast<long long>(n) * H + h) * S + row] = m[r] * scale + logf(lc[r]);
+  }
+  // O = acc / l (IEEE division, as the plain version), through sQ
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    acc[i][0] /= lc[0];
+    acc[i][1] /= lc[0];
+    acc[i][2] /= lc[1];
+    acc[i][3] /= lc[1];
+  }
+  acc_to_tile<HD>(sQ, acc, 1.f, warp, lane);
+  __syncthreads();
+  store_tile<HD>(o + (static_cast<long long>(n) * S * H + h) * hd, qstride, q0, S, hd, sQ, vec);
+}
+
+// ---------------------------------------------------------------------------
+// backward, dQ (and D): one block per (q tile, head), longest first
+// ---------------------------------------------------------------------------
+template <int HD>
+__global__ void __launch_bounds__(kThreads) flash_mma_bwd_dq(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ o, const bf16* __restrict__ dout, const float* __restrict__ lse,
+    float* __restrict__ dbuf, bf16* __restrict__ dq, int N, int S, int H, int KV, int hd,
+    int causal, int window, float scale, int vec) {
+  constexpr int LD = ld<HD>(), NT = HD / 8, KS = HD / 16, T = kB * LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sdO = sQ + T;
+  bf16* sK = sdO + T;              // two stages
+  bf16* sV = sK + 2 * T;           // two stages
+  const int heads = N * H, nqt = (S + kB - 1) / kB;
+  const int q0 = (nqt - 1 - static_cast<int>(blockIdx.x) / heads) * kB;
+  const int n = (blockIdx.x % heads) / H, h = blockIdx.x % H, kvh = h / (H / KV);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const long long qstride = static_cast<long long>(H) * hd;
+  const long long kstride = static_cast<long long>(KV) * hd;
+  const long long qoff = (static_cast<long long>(n) * S * H + h) * hd;
+  const long long soff = (static_cast<long long>(n) * H + h) * S;
+  const bf16* kb = k + (static_cast<long long>(n) * S * KV + kvh) * hd;
+  const bf16* vb = v + (static_cast<long long>(n) * S * KV + kvh) * hd;
+
+  const int k_end = causal ? min(S, q0 + kB) : S;
+  const int kt0 = (window ? max(0, q0 - window + 1) : 0) / kB;
+  const int nk = (k_end + kB - 1) / kB - kt0;
+  load_tile<HD>(sQ, q + qoff, qstride, q0, S, hd, vec);
+  load_tile<HD>(sdO, dout + qoff, qstride, q0, S, hd, vec);
+  load_tile<HD>(sK, kb, kstride, kt0 * kB, S, hd, vec);
+  load_tile<HD>(sV, vb, kstride, kt0 * kB, S, hd, vec);
+  cp_commit();
+
+  // D_i = sum_d dO_id O_id of the warp's 16 rows, two lanes a row (lane
+  // 2i + j: row i, half j of d), while the copies fly; then each thread
+  // takes D and lse of its own two rows, row0 and row0 + 8
+  const int row0 = q0 + warp * 16 + g;
+  float Drow[2], lrow[2];
+  {
+    const int row = q0 + warp * 16 + lane / 2, d0 = (lane & 1) * (HD / 2);
+    float part = 0.f;
+    if (row < S) {
+      const bf16* gp = dout + qoff + row * qstride;
+      const bf16* op = o + qoff + row * qstride;
+      if (vec) {
+        for (int d = d0; d < d0 + HD / 2 && d < hd; d += 8) {
+          const uint4 a = *reinterpret_cast<const uint4*>(gp + d);
+          const uint4 b = *reinterpret_cast<const uint4*>(op + d);
+          const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+          const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            part = fmaf(__low2float(a2[j]), __low2float(b2[j]), part);
+            part = fmaf(__high2float(a2[j]), __high2float(b2[j]), part);
+          }
+        }
+      } else {
+        for (int d = d0; d < d0 + HD / 2 && d < hd; ++d)
+          part = fmaf(__bfloat162float(gp[d]), __bfloat162float(op[d]), part);
+      }
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    if ((lane & 1) == 0 && row < S) dbuf[soff + row] = part;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      Drow[r] = __shfl_sync(0xffffffffu, part, 2 * (g + 8 * r));
+      lrow[r] = row0 + 8 * r < S ? lse[soff + row0 + 8 * r] * kLog2e : 0.f;
+    }
+  }
+
+  float acc[NT][4];
+#pragma unroll
+  for (int i = 0; i < NT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  const float sl2 = scale * kLog2e;      // P = 2^(s sl2 - lse log2(e))
+
+  for (int it = 0; it < nk; ++it) {
+    const int k0 = (kt0 + it) * kB;
+    const bf16* cK = sK + (it & 1) * T;
+    const bf16* cV = sV + (it & 1) * T;
+    if (it + 1 < nk) {
+      load_tile<HD>(sK + ((it + 1) & 1) * T, kb, kstride, k0 + kB, S, hd, vec);
+      load_tile<HD>(sV + ((it + 1) & 1) * T, vb, kstride, k0 + kB, S, hd, vec);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      s[i][0] = s[i][1] = s[i][2] = s[i][3] = dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t a[4], c[4];
+      ldsm(a, frag_a<LD>(sQ, warp * 16, kk * 16, lane));
+      ldsm(c, frag_a<LD>(sdO, warp * 16, kk * 16, lane));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t b[4];
+        ldsm(b, frag_b<LD>(cK, j * 16, kk * 16, lane));
+        mma(s[2 * j], a, b[0], b[1]);
+        mma(s[2 * j + 1], a, b[2], b[3]);
+        ldsm(b, frag_b<LD>(cV, j * 16, kk * 16, lane));
+        mma(dp[2 * j], c, b[0], b[1]);
+        mma(dp[2 * j + 1], c, b[2], b[3]);
+      }
+    }
+    // dS = P (dP - D), P = exp(s scale - lse), in fp32 (into s)
+    const bool masked = cut(q0, k0, S, causal, window);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = i >> 1;
+        const bool ok =
+            !masked || visible(row0 + 8 * r, k0 + nt * 8 + 2 * t + (i & 1), S, causal, window);
+        const float p = ok ? exp2f(fmaf(s[nt][i], sl2, -lrow[r])) : 0.f;
+        s[nt][i] = p * (dp[nt][i] - Drow[r]);
+      }
+    // dQ += dS K, dS as bf16 hi + lo
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t hi[4], lo[4];
+      frag_split(hi, lo, s, kk);
+#pragma unroll
+      for (int dj = 0; dj < KS; ++dj) {
+        uint32_t b[4];
+        ldsm_t(b, frag_bt<LD>(cK, kk * 16, dj * 16, lane));
+        mma(acc[2 * dj], hi, b[0], b[1]);
+        mma(acc[2 * dj + 1], hi, b[2], b[3]);
+        mma(acc[2 * dj], lo, b[0], b[1]);
+        mma(acc[2 * dj + 1], lo, b[2], b[3]);
+      }
+    }
+    __syncthreads();
+  }
+
+  acc_to_tile<HD>(sQ, acc, scale, warp, lane);
+  __syncthreads();
+  store_tile<HD>(dq + qoff, qstride, q0, S, hd, sQ, vec);
+}
+
+// ---------------------------------------------------------------------------
+// backward, dK and dV: one block per (k tile, KV head), after flash_mma_bwd_dq
+// (D). It walks the G query heads of its group and their q tiles in a fixed
+// order, (Q, dO, lse, D) of the next one in flight.
+// ---------------------------------------------------------------------------
+template <int HD>
+__global__ void __launch_bounds__(kThreads) flash_mma_bwd_dkdv(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dbuf,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int N, int S, int H, int KV, int hd,
+    int causal, int window, float scale, int vec) {
+  constexpr int LD = ld<HD>(), NT = HD / 8, KS = HD / 16, T = kB * LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sV = sK + T;
+  bf16* sQ = sV + T;               // two stages
+  bf16* sdO = sQ + 2 * T;          // two stages
+  float* sL = reinterpret_cast<float*>(sdO + 2 * T);   // two stages of kB
+  float* sD = sL + 2 * kB;                             // two stages of kB
+  const int heads = N * KV;
+  const int k0 = static_cast<int>(blockIdx.x) / heads * kB;   // the most queries first
+  const int n = (blockIdx.x % heads) / KV, kvh = blockIdx.x % KV, G = H / KV;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const long long qstride = static_cast<long long>(H) * hd;
+  const long long kstride = static_cast<long long>(KV) * hd;
+  const long long koff = (static_cast<long long>(n) * S * KV + kvh) * hd;
+
+  // queries that can see a key of this tile
+  const int qt0 = (causal ? k0 : 0) / kB;
+  const int q_end = window ? min(S, k0 + kB - 1 + window) : S;
+  const int nq = (q_end + kB - 1) / kB - qt0, steps = G * nq;
+  auto issue = [&](int step, int stage) {      // (Q, dO, lse, D) of step into stage
+    const int h = kvh * G + step / nq, q0 = (qt0 + step % nq) * kB;
+    const long long qoff = (static_cast<long long>(n) * S * H + h) * hd;
+    const long long soff = (static_cast<long long>(n) * H + h) * S;
+    load_tile<HD>(sQ + stage * T, q + qoff, qstride, q0, S, hd, vec);
+    load_tile<HD>(sdO + stage * T, dout + qoff, qstride, q0, S, hd, vec);
+    const int r = threadIdx.x % kB, row = q0 + r;
+    const float* src = (threadIdx.x < kB ? lse : dbuf) + soff;
+    float* dst = (threadIdx.x < kB ? sL : sD) + stage * kB + r;
+    cp4(dst, row < S ? src + row : src, row < S ? 4 : 0);
+  };
+  load_tile<HD>(sK, k + koff, kstride, k0, S, hd, vec);
+  load_tile<HD>(sV, v + koff, kstride, k0, S, hd, vec);
+  issue(0, 0);
+  cp_commit();
+
+  float gk[NT][4], gv[NT][4];
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+    gk[i][0] = gk[i][1] = gk[i][2] = gk[i][3] = gv[i][0] = gv[i][1] = gv[i][2] = gv[i][3] = 0.f;
+  const int key0 = k0 + warp * 16 + g;       // this thread's keys: key0, key0 + 8
+  const float sl2 = scale * kLog2e;           // P = 2^(s sl2 - lse log2(e))
+
+  for (int it = 0; it < steps; ++it) {
+    const int q0 = (qt0 + it % nq) * kB, st = it & 1;
+    const bf16* cQ = sQ + st * T;
+    const bf16* cdO = sdO + st * T;
+    const float* cL = sL + st * kB;
+    const float* cD = sD + st * kB;
+    if (it + 1 < steps) {
+      issue(it + 1, st ^ 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 keys x 64 queries a warp
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      s[i][0] = s[i][1] = s[i][2] = s[i][3] = dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t a[4], c[4];
+      ldsm(a, frag_a<LD>(sK, warp * 16, kk * 16, lane));
+      ldsm(c, frag_a<LD>(sV, warp * 16, kk * 16, lane));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t b[4];
+        ldsm(b, frag_b<LD>(cQ, j * 16, kk * 16, lane));
+        mma(s[2 * j], a, b[0], b[1]);
+        mma(s[2 * j + 1], a, b[2], b[3]);
+        ldsm(b, frag_b<LD>(cdO, j * 16, kk * 16, lane));
+        mma(dp[2 * j], c, b[0], b[1]);
+        mma(dp[2 * j + 1], c, b[2], b[3]);
+      }
+    }
+    // P^T (into s) and dS^T = P^T (dP^T - D) (into dp), fp32
+    const bool masked = cut(q0, k0, S, causal, window);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qi = nt * 8 + 2 * t + (i & 1);
+        const bool ok = !masked || visible(q0 + qi, key0 + 8 * (i >> 1), S, causal, window);
+        const float p = ok ? exp2f(fmaf(s[nt][i], sl2, -cL[qi] * kLog2e)) : 0.f;
+        s[nt][i] = p;
+        dp[nt][i] = p * (dp[nt][i] - cD[qi]);
+      }
+    // dV += bf16(P^T) dO; dK += dS^T Q with dS^T as bf16 hi + lo
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t a[4], hi[4], lo[4];
+      frag_of(a, s, kk);
+      frag_split(hi, lo, dp, kk);
+#pragma unroll
+      for (int dj = 0; dj < KS; ++dj) {
+        uint32_t b[4];
+        ldsm_t(b, frag_bt<LD>(cdO, kk * 16, dj * 16, lane));
+        mma(gv[2 * dj], a, b[0], b[1]);
+        mma(gv[2 * dj + 1], a, b[2], b[3]);
+        ldsm_t(b, frag_bt<LD>(cQ, kk * 16, dj * 16, lane));
+        mma(gk[2 * dj], hi, b[0], b[1]);
+        mma(gk[2 * dj + 1], hi, b[2], b[3]);
+        mma(gk[2 * dj], lo, b[0], b[1]);
+        mma(gk[2 * dj + 1], lo, b[2], b[3]);
+      }
+    }
+    __syncthreads();
+  }
+
+  acc_to_tile<HD>(sK, gk, scale, warp, lane);
+  acc_to_tile<HD>(sV, gv, 1.f, warp, lane);
+  __syncthreads();
+  store_tile<HD>(dk + koff, kstride, k0, S, hd, sK, vec);
+  store_tile<HD>(dv + koff, kstride, k0, S, hd, sV, vec);
+}
+
+}  // namespace tc
+
 bool dims_ok(long long N, long long S, long long H, long long KV, long long hd) {
   return N >= 1 && N <= 65535 && S >= 1 && S <= 0x7fffffffLL - kBQ && H >= 1 && H <= 65535 &&
          KV >= 1 && H % KV == 0 && hd >= 1 && hd <= 128 && N * S * H * hd < (1LL << 62);
@@ -517,6 +1129,74 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
   return static_cast<int>(cudaGetLastError());
 }
 
+bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
+}
+
+// the bf16 kernels' grid: tiles x heads in one dimension
+bool mma_grid(long long tiles, long long heads, unsigned* blocks) {
+  if (tiles * heads > 0x7fffffffLL) return false;
+  *blocks = static_cast<unsigned>(tiles * heads);
+  return true;
+}
+
+template <int HD>
+int launch_fwd_mma(const void* q, const void* k, const void* v, void* o, float* lse, int N,
+                   int S, int H, int KV, int hd, int causal, int window, float scale,
+                   cudaStream_t st) {
+  using tc::bf16;
+  constexpr int smem = tc::fwd_smem<HD>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      tc::flash_mma_fwd<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  unsigned blocks;
+  if (!mma_grid((S + tc::kB - 1) / tc::kB, static_cast<long long>(N) * H, &blocks))
+    return cudaErrorInvalidValue;
+  const int vec = hd % 8 == 0 && aligned16({q, k, v, o});
+  tc::flash_mma_fwd<HD><<<blocks, tc::kThreads, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), lse, N, S, H, KV, hd, causal, window, scale, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int launch_bwd_mma(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                   const float* lse, float* dbuf, void* dq, void* dk, void* dv, int N, int S,
+                   int H, int KV, int hd, int causal, int window, float scale, cudaStream_t st) {
+  using tc::bf16;
+  constexpr int smem_q = tc::dq_smem<HD>(), smem_kv = tc::dkdv_smem<HD>();
+  static const cudaError_t attr = [] {   // once per instantiation, as launch_fwd
+    cudaError_t e = cudaFuncSetAttribute(tc::flash_mma_bwd_dq<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(tc::flash_mma_bwd_dkdv<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
+    return e;
+  }();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const long long tiles = (S + tc::kB - 1) / tc::kB;
+  unsigned q_blocks, kv_blocks;
+  if (!mma_grid(tiles, static_cast<long long>(N) * H, &q_blocks) ||
+      !mma_grid(tiles, static_cast<long long>(N) * KV, &kv_blocks))
+    return cudaErrorInvalidValue;
+  const int vec = hd % 8 == 0 && aligned16({q, k, v, o, dout, dq, dk, dv});
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  const bf16* dot = static_cast<const bf16*>(dout);
+  tc::flash_mma_bwd_dq<HD><<<q_blocks, tc::kThreads, smem_q, st>>>(
+      qt, kt, vt, static_cast<const bf16*>(o), dot, lse, dbuf, static_cast<bf16*>(dq), N, S, H,
+      KV, hd, causal, window, scale, vec);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tc::flash_mma_bwd_dkdv<HD><<<kv_blocks, tc::kThreads, smem_kv, st>>>(
+      qt, kt, vt, dot, lse, dbuf, static_cast<bf16*>(dk), static_cast<bf16*>(dv), N, S, H, KV,
+      hd, causal, window, scale, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q, o: (N, S, H, hd); k, v: (N, S, KV, hd), one dtype (0 fp32, 1 bf16),
@@ -533,11 +1213,13 @@ extern "C" int flash_attention_forward(const void* q, const void* k, const void*
   const int n = static_cast<int>(N), s = static_cast<int>(S), h = static_cast<int>(H),
             kv = static_cast<int>(KV), d = static_cast<int>(hd), w = static_cast<int>(window);
 #define FWD(T, HD) launch_fwd<T, HD>(q, k, v, o, lse, n, s, h, kv, d, causal, w, scale, st)
+#define FWD_MMA(HD) launch_fwd_mma<HD>(q, k, v, o, lse, n, s, h, kv, d, causal, w, scale, st)
   if (bf16) {
-    if (hd <= 32) return FWD(__nv_bfloat16, 32);
-    if (hd <= 64) return FWD(__nv_bfloat16, 64);
-    return FWD(__nv_bfloat16, 128);
+    if (hd <= 32) return FWD_MMA(32);
+    if (hd <= 64) return FWD_MMA(64);
+    return FWD_MMA(128);
   }
+#undef FWD_MMA
   if (hd <= 32) return FWD(float, 32);
   if (hd <= 64) return FWD(float, 64);
   return FWD(float, 128);
@@ -561,15 +1243,35 @@ extern "C" int flash_attention_backward(const void* q, const void* k, const void
 #define BWD(T, HD)                                                                            \
   launch_bwd<T, HD>(q, k, v, o, dout, lse, dbuf, dq, dk, dv, n, s, h, kv, d, causal, w, scale, \
                     st)
+#define BWD_MMA(HD)                                                                        \
+  launch_bwd_mma<HD>(q, k, v, o, dout, lse, dbuf, dq, dk, dv, n, s, h, kv, d, causal, w, scale, \
+                     st)
   if (bf16) {
-    if (hd <= 32) return BWD(__nv_bfloat16, 32);
-    if (hd <= 64) return BWD(__nv_bfloat16, 64);
-    return BWD(__nv_bfloat16, 128);
+    if (hd <= 32) return BWD_MMA(32);
+    if (hd <= 64) return BWD_MMA(64);
+    return BWD_MMA(128);
   }
+#undef BWD_MMA
   if (hd <= 32) return BWD(float, 32);
   if (hd <= 64) return BWD(float, 64);
   return BWD(float, 128);
 #undef BWD
+}
+
+// Dynamic shared memory of a bf16 kernel (0 forward, 1 dQ, 2 dK/dV) at the
+// head dim hd, in bytes; the fp32 kernels' likewise (bf16 = 0).
+extern "C" int flash_attention_smem_bytes(int kernel, long long hd, int bf16) {
+  const int i = hd <= 32 ? 0 : hd <= 64 ? 1 : 2;
+  if (bf16) {
+    const int fwd[] = {tc::fwd_smem<32>(), tc::fwd_smem<64>(), tc::fwd_smem<128>()};
+    const int dq[] = {tc::dq_smem<32>(), tc::dq_smem<64>(), tc::dq_smem<128>()};
+    const int dkdv[] = {tc::dkdv_smem<32>(), tc::dkdv_smem<64>(), tc::dkdv_smem<128>()};
+    return kernel == 0 ? fwd[i] : kernel == 1 ? dq[i] : dkdv[i];
+  }
+  const int fwd[] = {fwd_smem<32>(), fwd_smem<64>(), fwd_smem<128>()};
+  const int dq[] = {dq_smem<32>(), dq_smem<64>(), dq_smem<128>()};
+  const int dkdv[] = {dkdv_smem<32>(), dkdv_smem<64>(), dkdv_smem<128>()};
+  return kernel == 0 ? fwd[i] : kernel == 1 ? dq[i] : dkdv[i];
 }
 
 extern "C" const char* flash_attention_error(int code) {

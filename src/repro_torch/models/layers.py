@@ -17,7 +17,6 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
 
@@ -145,8 +144,15 @@ def mlp_param_init(gen, d: int, f: int, *, lead: tuple = (), device="cpu") -> Pa
     }
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``'s op order, ``x * (1 / (1 + exp(-x)))``, each step
+    rounded to x's dtype. PyTorch's fused silu rounds once, and in bf16 gives
+    other bits for some values."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
 def mlp_apply(x: torch.Tensor, p: Params, cfg) -> torch.Tensor:
     dt = cdtype(cfg)
     h = x.to(dt)
-    up = F.silu(client_mm(h, p["w1"].to(dt))) * client_mm(h, p["w3"].to(dt))
+    up = silu(client_mm(h, p["w1"].to(dt))) * client_mm(h, p["w3"].to(dt))
     return client_mm(up, p["w2"].to(dt)).to(x.dtype)

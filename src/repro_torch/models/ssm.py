@@ -18,7 +18,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.mlstm_chunk import mlstm_chunk
-from repro_torch.models.layers import Params, cdtype, client_mm, dense_init, per_client, rmsnorm
+from repro_torch.models.layers import (Params, cdtype, client_mm, dense_init, per_client, rmsnorm,
+                                      silu)
 
 
 # ---------------------------------------------------------------------------
@@ -73,15 +74,8 @@ def mlstm_apply(x: torch.Tensor, p: Params, cfg) -> torch.Tensor:
 
     hcell = mlstm_chunk(q, k, v, per_head(F.logsigmoid(fg)), per_head(torch.sigmoid(ig)))
     hcell = hcell.reshape(C, B, H, S, dh).permute(0, 1, 3, 2, 4).reshape(C, B, S, di).to(dt)
-    out = client_mm(hcell * _silu(z), p["w_down"].to(dt))
+    out = client_mm(hcell * silu(z), p["w_down"].to(dt))
     return x + out.to(x.dtype)
-
-
-def _silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu``'s op order, ``x * 1 / (1 + exp(-x))``, each step
-    rounded to x's dtype: in bf16, ``F.silu`` (one rounding) differs from it
-    in about a third of the elements."""
-    return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
 # ---------------------------------------------------------------------------

@@ -330,17 +330,18 @@ def _close(got, want, rtol, atol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,S,H,KV,hd,causal,window,dtype", [
-    (16, 512, 15, 5, 64, True, 0, torch.bfloat16),      # the path's shape
-    (16, 512, 15, 5, 64, True, 0, torch.float32),
-    (4, 512, 15, 5, 64, True, 128, torch.bfloat16),     # sliding window
-    (3, 200, 6, 2, 64, True, 0, torch.float32),         # ragged S
-    (3, 200, 4, 4, 64, True, 0, torch.float32),         # G = 1
-    (2, 130, 4, 2, 64, False, 0, torch.float32),        # full attention
-    (2, 96, 4, 2, 64, False, 40, torch.float32),        # window without causality
-    (8, 32, 4, 2, 32, True, 0, torch.float32),          # the reduced model's hd
-    (2, 150, 4, 1, 128, True, 0, torch.bfloat16),       # hd 128
-    (2, 70, 3, 3, 40, True, 0, torch.float32),          # hd not a power of two
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("N,S,H,KV,hd,causal,window", [
+    (16, 512, 15, 5, 64, True, 0),      # the path's shape
+    (4, 512, 15, 5, 64, True, 128),     # sliding window
+    (3, 200, 6, 2, 64, True, 0),        # ragged S
+    (3, 200, 4, 4, 64, True, 0),        # G = 1
+    (2, 130, 4, 2, 64, False, 0),       # full attention
+    (2, 96, 4, 2, 64, False, 40),       # window without causality
+    (8, 32, 4, 2, 32, True, 0),         # the reduced model's hd
+    (2, 150, 4, 1, 128, True, 0),       # hd 128
+    (2, 70, 3, 3, 40, True, 0),         # hd not a power of two
+    (2, 90, 4, 2, 20, True, 0),         # hd not a multiple of 8: staged element by element
 ])
 def test_flash_attention_kernels_match_plain_on_card(cuda_device, N, S, H, KV, hd, causal,
                                                      window, dtype):
@@ -355,7 +356,8 @@ def test_flash_attention_kernels_match_plain_on_card(cuda_device, N, S, H, KV, h
     assert fa.LAUNCHES["forward"] == before["forward"] + 1
     o_want, lse_want = attention_ref(q, k, v, causal=causal, window=window)
     # (rtol, atol): fp32 as tests/test_kernels.py:27; bf16 holds a measured
-    # error of 4e-3 (forward) and 2e-3 (backward) with room
+    # error of 3.9e-3 (forward) and 1.6e-2 (backward: one bf16 step of a
+    # gradient of magnitude 2-4) with room
     fwd_tol, bwd_tol = (((2e-5, 2e-5), (1e-4, 1e-4)) if dtype == torch.float32
                         else ((2e-2, 1e-2), (2e-2, 1e-2)))
     assert _close(o, o_want, *fwd_tol)
