@@ -14,7 +14,9 @@ Phases (any failure exits non-zero and prints no result line):
      build time and ptxas report; then one line per K4 kernel: registers,
      shared memory and spills (ptxas) and HMMA instructions (``cuobjdump
      -sass``). Every bf16 K4 kernel must have HMMA, and the hd-64 ones, the
-     path's, must spill nothing.
+     path's, must spill nothing. The same for K5: every kernel with
+     split-TF32 products must have ``HMMA.1688.F32.TF32`` (m16n8k8 TF32) and
+     none may spill (one build serves every head dim up to 512).
   3. kernels: hold each kernel against its plain PyTorch version on the
      card at the shapes its path gives it (bit equality for K1, stated
      tolerances for K2); time K1, its plain version and one PyTorch
@@ -67,9 +69,11 @@ Phases (any failure exits non-zero and prints no result line):
  12. K5 (the mLSTM chunk kernels), forward and backward, against the plain
      chunk form and autograd through it on the card, at the xLSTM path's
      shape (48, 512, 512), the reduced model's (24, 320, 64) and ragged
-     ones, within the absolute tolerances of tests/test_torch_kernels.py
-     (h 2e-4; dq 2e-3; dv 2e-4; dk, d log_f, d i 2e-2); the backward must
-     be bit-identical run to run.
+     ones (an odd head dim among them), within the absolute tolerances of
+     tests/test_torch_kernels.py (h 2e-4; dq 2e-3; dv 2e-4; dk, d log_f, d
+     i 2e-2); the backward must be bit-identical run to run. At the path's
+     shape and at S = 300, each output's error against the plain chunk form
+     in float64 must be at most 4x the fp32 plain form's own.
  13. xLSTM run: the same entry point on full-width xLSTM-350M (24 layers,
      d_model 1024, 4 heads, mLSTM head dim 512, an sLSTM block every 8th
      layer, vocab 50,304, 8 modules, 7 tiers; weights random from seed 0),
@@ -81,10 +85,13 @@ Phases (any failure exits non-zero and prints no result line):
      on the CPU, as phase 6.
  15. K5 times as K3's and K4's (no single PyTorch call computes an mLSTM,
      so no library yardstick), beside the bound: the fp32 operations this
-     run's chunks need over the fp32 rate; then torch.profiler over two
-     rounds of the xLSTM run (device busy share, K5's and K3's shares, the
-     top kernels), printed only. Every profile records device activity
-     only and reads the raw trace.
+     run's chunks need over the fp32 rate, and beside it the split-TF32
+     bound (three times those operations over the TF32 tensor-core rate);
+     torch.profiler over ten K5 forwards and backwards (device time per call
+     of each K5 kernel); then torch.profiler over two rounds of the xLSTM
+     run (device busy share, K5's and K3's shares, the top kernels), printed
+     only. Every profile records device activity only and reads the raw
+     trace.
 Every phase first waits, up to CARD_WAIT_S seconds over the whole run, until
 the card has the device memory it needs free: another process on the same
 card (a second run started beside this one) may hold its memory until it
@@ -111,6 +118,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+TF32_OPS_PER_S = 495e12        # H100 SXM TF32 tensor cores, dense
 TIMED_ITERS = 50
 
 
@@ -216,11 +224,12 @@ def phase_build():
     for name in names:
         print(nvcc.library_path(name).with_suffix(".log").read_text().strip())
     k4_build_report()
+    k5_build_report()
 
 
 def _ptxas_report(log: str) -> dict:
-    """{mangled kernel: {"registers", "spill_stores", "spill_loads"}} from an
-    ``-Xptxas -v`` log."""
+    """{mangled kernel: {"registers", "smem", "spill_stores", "spill_loads"}}
+    from an ``-Xptxas -v`` log (smem: static shared memory, bytes)."""
     import re
 
     out, cur = {}, None
@@ -232,11 +241,14 @@ def _ptxas_report(log: str) -> dict:
             cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
         elif cur is not None and (m := re.search(r"Used (\d+) registers", line)):
             cur["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(smem.group(1)) if smem else 0
     return out
 
 
-def _hmma_counts(lib: Path) -> dict:
-    """{mangled kernel: number of HMMA instructions} in ``cuobjdump -sass``."""
+def _hmma_counts(lib: Path, op: str = "HMMA") -> dict:
+    """{mangled kernel: number of instructions holding ``op``} in ``cuobjdump
+    -sass``."""
     from repro_torch.kernels import nvcc
 
     sass = subprocess.run([str(Path(nvcc.nvcc_path()).parent / "cuobjdump"), "-sass", str(lib)],
@@ -246,7 +258,7 @@ def _hmma_counts(lib: Path) -> dict:
         if "Function : " in line:
             cur = line.split("Function : ", 1)[1].strip()
             counts[cur] = 0
-        elif cur is not None and "HMMA" in line:
+        elif cur is not None and op in line:
             counts[cur] += 1
     return counts
 
@@ -290,6 +302,45 @@ def k4_build_report() -> None:
     if seen != 9:
         fail(f"expected 9 bf16 K4 kernels (3 kernels x hd 32/64/128) in the build log, "
              f"found {seen}")
+
+
+# K5's kernels; all but prep, bprep and gates run split-TF32 products
+MLSTM_KERNELS = ("mlstm_prep", "mlstm_scores", "mlstm_state", "mlstm_out",
+                 "mlstm_bprep", "mlstm_bstate", "mlstm_bscores", "mlstm_dq", "mlstm_dv",
+                 "mlstm_dk", "mlstm_gates")
+MLSTM_SCAN_KERNELS = ("mlstm_prep", "mlstm_bprep", "mlstm_gates")
+
+
+def k5_build_report() -> None:
+    """K5's kernels as built: registers, static shared memory, spills (the
+    ptxas report) and TF32 HMMA instructions (the SASS). Fails unless every
+    kernel with split-TF32 products has HMMA.1688.F32.TF32 and none of them
+    spills (one build serves every dh up to 512)."""
+    import re
+
+    from repro_torch.kernels import nvcc
+
+    lib_path = nvcc.library_path("mlstm_chunk")
+    ptxas = _ptxas_report(lib_path.with_suffix(".log").read_text())
+    hmma = _hmma_counts(lib_path, "HMMA.1688.F32.TF32")
+    seen = set()
+    for mangled, info in sorted(ptxas.items()):
+        m = re.search(r"\d(mlstm_[a-z]+)E", mangled)
+        if m is None or m.group(1) not in MLSTM_KERNELS:
+            continue
+        name, n_hmma = m.group(1), hmma.get(mangled, 0)
+        seen.add(name)
+        print(f"[build] K5 {name}: {info['registers']} registers, {info['smem']} bytes of shared "
+              f"memory, spills {info['spill_stores']} / {info['spill_loads']} bytes (stores / "
+              f"loads), {n_hmma} HMMA.1688.F32.TF32")
+        if name in MLSTM_SCAN_KERNELS:
+            continue
+        if not n_hmma:
+            fail(f"{name} has no TF32 HMMA instruction: its products are not on the tensor cores")
+        if info["spill_stores"] or info["spill_loads"]:
+            fail(f"{name} spills registers")
+    if seen != set(MLSTM_KERNELS):
+        fail(f"K5 kernels missing from the build log: {sorted(set(MLSTM_KERNELS) - seen)}")
 
 
 def _bound(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S
@@ -1169,13 +1220,13 @@ MLSTM_CASES = [
     ("ragged S = 96, dh 32", 3, 96, 32),
     ("ragged S = 200, dh 128", 3, 200, 128),
     ("ragged S = 300, dh 256", 2, 300, 256),
+    ("ragged S = 130, odd dh 37", 2, 130, 37),    # 4-byte copies
 ]
-# absolute tolerances of tests/test_torch_kernels.py (about 5x the largest
-# errors measured at the path's shape)
+# absolute tolerances of tests/test_torch_kernels.py (6x or more the largest
+# errors measured at the path's shape: h 3.3e-5, dq 1.5e-4, dv 2.7e-5, dk
+# 2.3e-3, d log_f 1.4e-3, d i 1.5e-3 on an H100 80GB HBM3 at 700 W)
 MLSTM_TOL = {"h": 2e-4, "dq": 2e-3, "dk": 2e-2, "dv": 2e-4, "dlf": 2e-2, "dig": 2e-2}
-MLSTM_KERNELS = ("mlstm_prep", "mlstm_scores", "mlstm_state", "mlstm_norm", "mlstm_out",
-                 "mlstm_bprep", "mlstm_bstate", "mlstm_bscores", "mlstm_dq", "mlstm_dk",
-                 "mlstm_dv", "mlstm_gates")
+MLSTM_OUTPUTS = ("h", "dq", "dk", "dv", "dlf", "dig")
 
 
 def _mlstm_inputs(BH, S, dh, g):
@@ -1230,7 +1281,36 @@ def phase_k5() -> dict:
         print(f"[kernels] mlstm_chunk {label} {(BH, S, dh)} fp32: forward max |diff| {fwd:.3g}, "
               f"backward max |diff| " + ", ".join(f"{k} {v:.3g}" for k, v in bwd.items())
               + ", backward bit-identical run to run")
+        if label in MLSTM_F64_CASES:
+            _k5_against_float64(label, ins, gout, (h, *grads), (want_h.detach(), *want))
     return err
+
+
+# the K5 cases also held against the plain chunk form in float64
+MLSTM_F64_CASES = ("path", "ragged S = 300, dh 256")
+
+
+def _k5_against_float64(label, ins, gout, got, plain) -> None:
+    """Each K5 output (h and the five gradients) against the plain chunk form
+    run in float64 on the card: the kernel's max |error| may be at most 4x
+    the fp32 plain form's own."""
+    import torch
+
+    from repro_torch.kernels.ref import mlstm_chunk_ref
+
+    leaves = [t.double().requires_grad_(True) for t in ins]
+    want_h = mlstm_chunk_ref(*leaves)
+    want = (want_h.detach(), *torch.autograd.grad(want_h, leaves, gout.double()))
+    parts = []
+    for name, a, b, w in zip(MLSTM_OUTPUTS, got, plain, want):
+        kernel_err = float((a.double() - w).abs().max())
+        plain_err = float((b.double() - w).abs().max())
+        parts.append(f"{name} {kernel_err:.3g} (plain fp32 {plain_err:.3g}, "
+                     f"{kernel_err / plain_err:.2f}x)")
+        if not kernel_err <= 4 * plain_err:
+            fail(f"mlstm_chunk {name} on {label}: error against float64 {kernel_err} is above 4x "
+                 f"the fp32 plain form's {plain_err}")
+    print(f"[kernels] mlstm_chunk {label} against float64: max |error| " + ", ".join(parts))
 
 
 XLSTM_ARGV = ["--arch", "xlstm-350m", "--full-size", "--clients", "3", "--batch-size", "4",
@@ -1321,6 +1401,42 @@ def _mlstm_work(BH: int, S: int, dh: int) -> tuple[float, float, float, float]:
             2.0 * BH * bwd_macs, 8.0 * row + 16 * BH * S)
 
 
+def k5_kernel_profile(BH: int, S: int, dh: int) -> None:
+    """torch.profiler over ten K5 forwards and backwards at (BH, S, dh) fp32:
+    the per-call device ms of every traced kernel whose name holds "mlstm",
+    printed. A trace with no device time prints "not measured"."""
+    import re
+
+    import torch
+
+    from repro_torch.kernels import mlstm_chunk as mk
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    ins = _mlstm_inputs(BH, S, dh, g)
+    gout = torch.randn(BH, S, dh, generator=g, device="cuda")
+    h, saved = mk.mlstm_forward(*ins)
+    mk.mlstm_backward(*ins, h, saved, gout)
+    torch.cuda.synchronize()
+
+    calls = 10
+
+    def run():
+        for _ in range(calls):
+            hh, ss = mk.mlstm_forward(*ins)
+            mk.mlstm_backward(*ins, hh, ss, gout)
+        torch.cuda.synchronize()
+
+    _, totals = _profile(run)
+    per_call = {}
+    for key, (n, t) in sorted(totals.items()):
+        if m := re.search(r"mlstm_\w+", key):
+            per_call[m.group(0)] = per_call.get(m.group(0), 0.0) + t * 1e3 / calls
+    if not per_call:
+        print(f"[profile] K5 kernels at {(BH, S, dh)}: no device time in the trace (not measured)")
+    for name, ms in per_call.items():
+        print(f"[profile] K5 {name} at {(BH, S, dh)}: {ms:.4f} ms device time per call")
+
+
 def phase_k5_times(err: dict) -> list[dict]:
     """K5 at the xLSTM path's shape (48, 512, 512) fp32: CUDA events and
     CUDA-graph device time for the kernels and the plain forward; events for
@@ -1356,11 +1472,16 @@ def phase_k5_times(err: dict) -> list[dict]:
     entries = []
     for direction in ("forward", "backward"):
         t = times[direction]
+        ops = fops if direction == "forward" else bops
+        # the same work as three TF32 products per fp32 one on the tensor cores
+        split_ms = _bound(fbytes if direction == "forward" else bbytes, 3 * ops,
+                          TF32_OPS_PER_S)[0]
         print(f"[kernels] mlstm_chunk {direction} at {(BH, S, dh)} fp32: kernel {t['ms']:.4f} ms "
               f"(device {t['device_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms"
               + (f" (device {t['plain_device_ms']:.4f} ms)" if "plain_device_ms" in t else "")
-              + f", bound {t['bound_ms']:.4f} ms ({t['bound_by']}; "
-              f"{(fops if direction == 'forward' else bops) / 1e9:.2f} GFLOP)")
+              + f", bound {t['bound_ms']:.4f} ms ({t['bound_by']}; {ops / 1e9:.2f} GFLOP at the "
+              f"fp32 rate), split-TF32 bound {split_ms:.4f} ms ({3 * ops / 1e9:.2f} GFLOP at the "
+              f"TF32 rate)")
         entries.append({
             "name": f"mlstm_chunk_{direction}",
             "route": "cuda",
@@ -1370,6 +1491,7 @@ def phase_k5_times(err: dict) -> list[dict]:
             "max_abs_err": err[f"mlstm_chunk_{direction}"],
             **t,
         })
+    k5_kernel_profile(BH, S, dh)
     return entries
 
 
@@ -1382,7 +1504,7 @@ def main() -> None:
     entry = _phase("K1", 1, phase_kernels)
     k2_err = _phase("K2", 1, phase_k2)
     k34_err = _phase("K3/K4", 10, phase_k3_k4)
-    k5_err = _phase("K5", 2, phase_k5)
+    k5_err = _phase("K5", 4, phase_k5)
     k1_launches = _phase("main path", 7, phase_main_path)
     k2_launches = _phase("dcor run", 5, phase_dcor_run)
     k34_launches = _phase("transformer run", 60, phase_transformer_run)
@@ -1392,8 +1514,8 @@ def main() -> None:
     _phase("dcor reference", 1, phase_small_reference,
            RESNET_SMALL + ["--dcor-alpha", "0.5"], "dcor")
     _phase("token-LM reference", 1, phase_small_reference, SMOLLM_SMALL, "token-LM")
-    # the card read max 0.507 U, 99th percentile 0.166 U, median 0.0040 U at
-    # 320 tokens (H100 80GB HBM3, 700 W), most of it in the mLSTM's wq, wk and
+    # the card read max 0.478 U, 99th percentile 0.166 U, median 0.0040 U at
+    # 320 tokens (H100 80GB HBM3, 700 W), most of it in the mLSTM's wk, wq and
     # w_up; the max is held to tests/test_torch_xlstm.py's 1 U (the JAX run
     # against itself from weights moved by one ulp spreads to 0.70 U), the
     # 99th percentile to 0.3 U, the median to the default 0.01 U

@@ -13,9 +13,11 @@ A CUDA tensor goes to the hand-written kernels (``csrc/mlstm_chunk.cu``,
 built by ``nvcc`` at first use, chunks of 256 with a ragged last chunk); a
 CPU tensor goes to the plain version ``kernels/ref.py::mlstm_chunk_ref``
 (the JAX package's op order and chunk rule), whose backward is autograd's.
-Anything else raises. ``LAUNCHES`` counts kernel launches on the device:
-five per forward (prep, scores, state, norm, out), seven per backward
-(bprep, bstate, bscores, dq, dk, dv, gates).
+Anything else raises. Every product runs on the tensor cores in split
+TF32 (three TF32 products per fp32 one), which keeps fp32 accuracy.
+``LAUNCHES`` counts kernel launches on the device: four per forward (prep,
+scores, state, out), seven per backward (bprep, bstate, bscores, dq, dv,
+dk, gates).
 """
 from __future__ import annotations
 
@@ -29,8 +31,7 @@ from repro_torch.kernels.ref import mlstm_chunk_ref
 LAUNCHES = {"forward": 0, "backward": 0}
 _LIB: ctypes.CDLL | None = None
 CHUNK = 256               # the kernels' chunk length (csrc/mlstm_chunk.cu kP)
-TILE = 64                 # tile of the per-chunk products (kT)
-SLAB = 32                 # columns of C per state block (kE)
+TILE = 64                 # output tile of every product (kT)
 MAX_HEAD_DIM = 512
 MAX_GRID = 65535          # BH * chunks rides the grid's z dimension
 FWD_SAVED = ("cum", "alpha", "u", "beta", "cst", "nst", "nq", "den")
@@ -44,7 +45,7 @@ def load_library() -> ctypes.CDLL:
         ll, vp, ci = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
         lib.mlstm_chunk_forward.argtypes = [vp] * 15 + [ll, ll, ll, vp]
         lib.mlstm_chunk_forward.restype = ci
-        lib.mlstm_chunk_backward.argtypes = [vp] * 29 + [ll, ll, ll, vp]
+        lib.mlstm_chunk_backward.argtypes = [vp] * 30 + [ll, ll, ll, vp]
         lib.mlstm_chunk_backward.restype = ci
         lib.mlstm_chunk_error.argtypes = [ci]
         lib.mlstm_chunk_error.restype = ctypes.c_char_p
@@ -97,8 +98,9 @@ def mlstm_forward(q, k, v, log_f, i_gate) -> tuple[torch.Tensor, dict]:
     nch = -(-S // CHUNK)
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=q.device)  # noqa: E731
     h = torch.empty_like(q)
+    # C and n at the start of every chunk after the first
     saved = {"cum": new(BH, S), "alpha": new(BH, S), "u": new(BH, S), "beta": new(BH, nch),
-             "cst": new(BH, nch, dh, dh), "nst": new(BH, nch, dh), "nq": new(BH, S),
+             "cst": new(BH, nch - 1, dh, dh), "nst": new(BH, nch - 1, dh), "nq": new(BH, S),
              "den": new(BH, S)}
     if BH == 0 or S == 0:
         return h, saved
@@ -111,7 +113,7 @@ def mlstm_forward(q, k, v, log_f, i_gate) -> tuple[torch.Tensor, dict]:
             *_ptrs(q, k, v, log_f, i_gate, h, s["cum"], s["alpha"], s["u"], s["beta"], amat,
                    s["cst"], s["nst"], s["nq"], s["den"]), BH, S, dh, stream)
     _raise_on(err, "forward")
-    LAUNCHES["forward"] += 5  # prep, scores, state, norm, out
+    LAUNCHES["forward"] += 4  # prep, scores, state, out
     return h, saved
 
 
@@ -131,22 +133,24 @@ def mlstm_backward(q, k, v, log_f, i_gate, h, saved: dict, g):
     if BH == 0 or S == 0:
         return dq, dk, dv, dlf, dig
     nch = -(-S // CHUNK)
-    ndt, nslab = -(-dh // TILE), -(-dh // SLAB)
+    ndt = -(-dh // TILE)
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=q.device)  # noqa: E731
-    r, dnend, dbn = new(BH, S), new(BH, nch, dh), new(BH, nch)
-    dcend = new(BH, nch, dh, dh)
-    amat, dsm, hm = (new(BH, nch, CHUNK, CHUNK) for _ in range(3))
-    dal, du, dbc = new(ndt, BH, S), new(ndt, BH, S), new(nslab, BH, nch)
+    r = new(BH, S)
+    dcend, dnend = new(BH, nch - 1, dh, dh), new(BH, nch - 1, dh)   # dC, dn at chunk ends
+    dbc, dbn = new(ndt * ndt, BH, nch), new(ndt, BH, nch)
+    amat, dsm = new(BH, nch, CHUNK, CHUNK), new(BH, nch, CHUNK, CHUNK)
+    hrow, hcol = new(CHUNK // TILE, BH, S), new(CHUNK // TILE, BH, S)
+    dal, du = new(ndt, BH, S), new(ndt, BH, S)
     s = saved
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.mlstm_chunk_backward(
             *_ptrs(q, k, v, i_gate, h, g, s["cum"], s["alpha"], s["u"], s["beta"], s["cst"],
-                   s["nst"], s["nq"], s["den"], r, dnend, dbn, dcend, amat, dsm, hm, dal, du,
-                   dbc, dq, dk, dv, dlf, dig), BH, S, dh, stream)
+                   s["nst"], s["nq"], s["den"], r, dcend, dnend, dbc, dbn, amat, dsm, hrow, hcol,
+                   dal, du, dq, dk, dv, dlf, dig), BH, S, dh, stream)
     _raise_on(err, "backward")
-    LAUNCHES["backward"] += 7  # bprep, bstate, bscores, dq, dk, dv, gates
+    LAUNCHES["backward"] += 7  # bprep, bstate, bscores, dq, dv, dk, gates
     return dq, dk, dv, dlf, dig
 
 

@@ -226,3 +226,33 @@ def mlstm_chunk_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_f: to
             "bs,bsd,bse->bde", w * ig, kb, vb)
         n = torch.exp(cum[..., -1])[..., None] * n + torch.einsum("bs,bsd->bd", w * ig, kb)
     return torch.cat(hs, dim=1)
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it (test-only):
+    to the nearest value with 10 fraction bits, ties away from zero, done on
+    the int32 view (sign and magnitude), so the low 13 bits come out 0."""
+    bits = x.float().contiguous().view(torch.int32)
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+    return ((bits & -0x80000000) | mag).view(torch.float32)
+
+
+def split_tf32_matmul(a: torch.Tensor, b: torch.Tensor, products: int = 3) -> torch.Tensor:
+    """``a (M, K) @ b (K, N)`` in fp32 as K5's kernels (``csrc/mlstm_chunk.cu``)
+    take it on the tensor cores (test-only). Each operand is split into big =
+    tf32(x) and small = tf32(x - big). Per k-step of 8, the products small.big
+    + big.small + big.big (``products=3``), or big.big alone (``products=1``,
+    one TF32 product), are summed exactly, rounded once to fp32 and added to
+    the fp32 running sum with one rounding."""
+    a, b = a.float(), b.float()
+    ab, bb = tf32_rna(a), tf32_rna(b)
+    asm, bsm = tf32_rna(a - ab), tf32_rna(b - bb)
+    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+    for k0 in range(0, a.shape[1], 8):
+        ks = slice(k0, k0 + 8)
+        step = ab[:, ks].double() @ bb[ks].double()
+        if products == 3:
+            step = (asm[:, ks].double() @ bb[ks].double()
+                    + ab[:, ks].double() @ bsm[ks].double() + step)
+        acc = (acc.double() + step.float().double()).float()
+    return acc
