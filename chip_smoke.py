@@ -11,15 +11,19 @@ Phases (any failure exits non-zero and prints no result line):
      gives them; turn TF32 off for matmuls and cuDNN.
   2. build: compile every kernel source from this checkout with nvcc for
      sm_90a, one nvcc per source, all started together, and print the
-     build time and ptxas report; then one line per K4 kernel: registers,
-     shared memory and spills (ptxas) and HMMA instructions (``cuobjdump
-     -sass``). Every bf16 K4 kernel must have HMMA, and the hd-64 ones, the
-     path's, must spill nothing. The same for K5: every kernel with
+     build time and ptxas report; then one line per K2 kernel (registers,
+     shared memory, stack, spills; all 20 instantiations must be there, and
+     the forward's blocks an SM must be kernels/dcor.py's) and per K4
+     kernel: registers, shared memory and spills (ptxas) and HMMA
+     instructions (``cuobjdump -sass``). Every bf16 K4 kernel must have
+     HMMA, and the hd-64 ones, the path's, must spill nothing. The same for K5: every kernel with
      split-TF32 products must have ``HMMA.1688.F32.TF32`` (m16n8k8 TF32) and
      none may spill (one build serves every head dim up to 512).
   3. kernels: hold each kernel against its plain PyTorch version on the
      card at the shapes its path gives it (bit equality for K1, stated
-     tolerances for K2); time K1, its plain version and one PyTorch
+     tolerances for K2, at the dcor path's shapes, a transformer's with
+     dcor (4, 4, 491,520) and ragged ones; K2 reruns must be
+     bit-identical); time K1, its plain version and one PyTorch
      library call with CUDA events, beside the bound: the larger of the
      bytes over the card's memory rate and the fp32 operations over its
      fp32 rate.
@@ -39,9 +43,11 @@ Phases (any failure exits non-zero and prints no result line):
      by the CPU tests), once with the int8 codec and once with
      ``--dcor-alpha 0.5``; clocks, tier assignments and uplink bytes must be
      equal, parameters close.
-  7. K2 times, as K1's in phase 3 plus device time from CUDA-graph
-     replays, after the runs so the graphs' memory stays out of their peak;
-     K1's device time the same way; then torch.profiler over K2's kernels
+  7. K2 times at (5, 32, 65,536), (5, 32, 3,072) and (4, 4, 491,520), as
+     K1's in phase 3 plus device time from CUDA-graph replays (the
+     kernels, their plain versions and the library yardsticks), after the
+     runs so the graphs' memory stays out of their peak; K1's device time
+     and its yardstick's the same way; then torch.profiler over K2's kernels
      (device time per kernel) and over two rounds of the dcor run (device
      busy share, K2's share, the top kernels), printed only.
   8. K3 and K4 (fused cross-entropy, flash attention), forward and
@@ -223,13 +229,15 @@ def phase_build():
     print(f"[build] {', '.join(names)} in parallel: {time.perf_counter() - t0:.2f} s")
     for name in names:
         print(nvcc.library_path(name).with_suffix(".log").read_text().strip())
+    k2_build_report()
     k4_build_report()
     k5_build_report()
 
 
 def _ptxas_report(log: str) -> dict:
-    """{mangled kernel: {"registers", "smem", "spill_stores", "spill_loads"}}
-    from an ``-Xptxas -v`` log (smem: static shared memory, bytes)."""
+    """{mangled kernel: {"registers", "smem", "stack", "spill_stores",
+    "spill_loads"}} from an ``-Xptxas -v`` log (smem: static shared memory;
+    stack: the local-memory frame, spills included; bytes)."""
     import re
 
     out, cur = {}, None
@@ -237,8 +245,10 @@ def _ptxas_report(log: str) -> dict:
         if m := re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line):
             cur = out.setdefault(m.group(1), {})
         elif cur is not None and (
-                m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
-            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+                m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                               r"(\d+) bytes spill loads", line)):
+            cur["stack"] = int(m.group(1))
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(2)), int(m.group(3))
         elif cur is not None and (m := re.search(r"Used (\d+) registers", line)):
             cur["registers"] = int(m.group(1))
             smem = re.search(r"(\d+) bytes smem", line)
@@ -261,6 +271,46 @@ def _hmma_counts(lib: Path, op: str = "HMMA") -> dict:
         elif cur is not None and op in line:
             counts[cur] += 1
     return counts
+
+
+def k2_build_report() -> None:
+    """K2's kernels as built, one line per instantiation (mode: the forward's
+    row tile, 4 to 32, or "B > 32"; vec: 16-byte copies): registers, static
+    shared memory, stack and spills (the ptxas report); then each mode's
+    blocks an SM by CUDA's occupancy calculator. Fails unless all 20 are in
+    the build log and the forward's blocks an SM are ``dcor.BLOCKS_PER_SM``,
+    the plan the CPU tests emulate."""
+    import re
+
+    from repro_torch.kernels import nvcc
+
+    ptxas = _ptxas_report(nvcc.library_path("pairwise_dist").with_suffix(".log").read_text())
+    seen = 0
+    for mangled, info in sorted(ptxas.items()):
+        m = re.search(r"\d(pdist_(?:fwd|bwd))ILi(\d+)ELb([01])E", mangled)
+        if m is None:
+            continue
+        mode = "B > 32" if m.group(2) == "0" else f"tile {m.group(2)}"
+        print(f"[build] K2 {m.group(1)}<{mode}, vec {m.group(3)}>: {info['registers']} registers, "
+              f"{info['smem']} bytes of static shared memory (+ the 96 KB ring), "
+              f"{info['stack']} bytes of stack, spills {info['spill_stores']} / "
+              f"{info['spill_loads']} bytes (stores / loads)")
+        seen += 1
+    if seen != 20:
+        fail(f"expected 20 K2 kernels (2 kernels x 5 modes x vec) in the build log, found {seen}")
+    import torch
+
+    from repro_torch.kernels import dcor
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    modes = ((4, 4), (8, 8), (16, 16), (32, 32), (70, 2 * dcor.CROSS_TILE))  # (B, rows staged)
+    fwd = {B: dcor.blocks_per_sm(dev, B) for B, _ in modes}
+    print("[build] K2 blocks an SM (forward / backward): " + ", ".join(
+        f"B = {B}: {fwd[B]} / {dcor.blocks_per_sm(dev, B, backward=True)}" for B, _ in modes))
+    for B, rows in modes:
+        if fwd[B] != dcor.BLOCKS_PER_SM[rows]:
+            fail(f"K2 forward at B = {B}: {fwd[B]} blocks an SM, not the "
+                 f"{dcor.BLOCKS_PER_SM[rows]} of kernels/dcor.py's BLOCKS_PER_SM")
 
 
 def k4_build_report() -> None:
@@ -392,6 +442,28 @@ def _graph_ms(fn, x) -> float:
     return start.elapsed_time(end) / TIMED_ITERS
 
 
+def _graph_ms_or_none(fn, x):
+    """``_graph_ms``, or None where ``fn`` synchronises with the host, which a
+    CUDA-graph capture forbids (found before any capture starts, with
+    torch's sync debug mode set to raise)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn(x)
+    except RuntimeError as e:
+        print(f"[kernels] not captured in a CUDA graph: {str(e).splitlines()[0]}")
+        return None
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return _graph_ms(fn, x)
+
+
+def _ms_text(ms) -> str:
+    return "not captured" if ms is None else f"{ms:.4f} ms"
+
+
 def phase_kernels() -> dict:
     """K1 against its plain version at the main path's shapes; times at z."""
     import torch
@@ -521,7 +593,10 @@ def phase_k2() -> tuple[float, float]:
         ("z after stage 1, 5 clients", (5, 32, 65_536)),
         ("z, 16,384", (5, 32, 16_384)),
         ("images, 5 clients", (5, 32, 3_072)),
+        ("transformer + dcor, SmolLM-360M", (4, 4, 491_520)),
+        ("B = 8", (3, 8, 10_000)),
         ("ragged", (3, 17, 1_001)),
+        ("ragged, B > 32", (2, 70, 4_100)),
         ("B = 1", (2, 1, 100)),
         ("identical rows", (2, 32, 3_072)),
     ]
@@ -536,6 +611,9 @@ def phase_k2() -> tuple[float, float]:
         gx = dcor.dist_backward(x, got, gd)
         gx_want = pairwise_dist_bwd_ref(x, got, gd)
         torch.cuda.synchronize()
+        if not (torch.equal(dcor.dist_forward(x), got)
+                and torch.equal(dcor.dist_backward(x, got, gd), gx)):
+            fail(f"pairwise_dist {label} {shape}: a rerun gave other bits")
         if label == "identical rows":
             u = 2.0 ** -24
             gamma = shape[2] * u / (1 - shape[2] * u)
@@ -556,15 +634,16 @@ def phase_k2() -> tuple[float, float]:
         fwd_err, bwd_err = max(fwd_err, err), max(bwd_err, gerr)
         print(f"[kernels] pairwise_dist {label} {shape}: forward max |diff| {err:.3g} "
               f"(off-diagonal rel {rel:.3g}, plain diagonal max {plain_diag:.3g}), "
-              f"backward max |diff| {gerr:.3g}")
+              f"backward max |diff| {gerr:.3g}, reruns bit-identical")
     return fwd_err, bwd_err
 
 
 def phase_k2_times(fwd_err: float, bwd_err: float) -> list[dict]:
-    """K2's times at (5, 32, 65,536) and (5, 32, 3,072): CUDA events and
-    CUDA-graph device time for the kernels and plain versions, events for
-    the library yardsticks. Run after the training runs, so the graphs'
-    memory pools stay out of their peak memory."""
+    """K2's times at (5, 32, 65,536) and (5, 32, 3,072), the dcor path's,
+    and at (4, 4, 491,520), a transformer's with dcor: CUDA events and
+    CUDA-graph device time for the kernels, their plain versions and the
+    library yardsticks. Run after the training runs, so the graphs' memory
+    pools stay out of their peak memory."""
     import torch
 
     from repro_torch.kernels import dcor
@@ -572,35 +651,40 @@ def phase_k2_times(fwd_err: float, bwd_err: float) -> list[dict]:
 
     g = torch.Generator(device="cuda").manual_seed(3)
     entries = []
-    for shape in ((5, 32, 65_536), (5, 32, 3_072)):
+    for shape in ((5, 32, 65_536), (5, 32, 3_072), (4, 4, 491_520)):
         C, B, F = shape
         x = torch.randn(shape, generator=g, device="cuda")
         dist = dcor.dist_forward(x)
         gd = torch.randn(dist.shape, generator=g, device="cuda")
         xr = x.clone().requires_grad_(True)
-        # yardsticks only (timed here, never called by the port): torch.cdist,
-        # and its forward + backward for the backward
         fwd_fn = dcor.dist_forward
         bwd_fn = partial(dcor.dist_backward, dist=dist, g_dist=gd)
         fwd_plain = pairwise_dist_ref
         bwd_plain = partial(pairwise_dist_bwd_ref, dist=dist, g_dist=gd)
+        # yardsticks only (timed here, never called by the port): torch.cdist,
+        # and its forward + backward for the backward
+        fwd_lib = lambda t: torch.cdist(t, t)                         # noqa: E731
+        bwd_lib = lambda t: torch.autograd.grad(torch.cdist(t, t), t, gd)  # noqa: E731
         fwd = {"ms": _cuda_ms(fwd_fn, x), "plain_ms": _cuda_ms(fwd_plain, x),
-               "library_ms": _cuda_ms(lambda t: torch.cdist(t, t), x),
-               "device_ms": _graph_ms(fwd_fn, x), "plain_device_ms": _graph_ms(fwd_plain, x)}
+               "library_ms": _cuda_ms(fwd_lib, x),
+               "device_ms": _graph_ms(fwd_fn, x), "plain_device_ms": _graph_ms(fwd_plain, x),
+               "library_device_ms": _graph_ms_or_none(fwd_lib, x)}
         bwd = {"ms": _cuda_ms(bwd_fn, x), "plain_ms": _cuda_ms(bwd_plain, x),
-               "library_ms": _cuda_ms(
-                   lambda t: torch.autograd.grad(torch.cdist(t, t), t, gd), xr),
-               "device_ms": _graph_ms(bwd_fn, x), "plain_device_ms": _graph_ms(bwd_plain, x)}
-        gram_ops = 2 * C * B * B * F
+               "library_ms": _cuda_ms(bwd_lib, xr),
+               "device_ms": _graph_ms(bwd_fn, x), "plain_device_ms": _graph_ms(bwd_plain, x),
+               "library_device_ms": _graph_ms_or_none(bwd_lib, xr)}
+        gram_ops = C * B * (B + 1) * F   # B (B + 1) / 2 entries i <= j, an FMA each a column
         fwd["bound_ms"], fwd["bound_by"] = _bound(4 * (C * B * F + C * B * B),
                                                   gram_ops + 6 * C * B * B)
         bwd["bound_ms"], bwd["bound_by"] = _bound(4 * (2 * C * B * F + 2 * C * B * B),
-                                                  gram_ops + 8 * C * B * B)
+                                                  2 * C * B * B * F + 8 * C * B * B)
         for name, t in (("forward", fwd), ("backward", bwd)):
             print(f"[kernels] pairwise_dist {name} at {shape} fp32: kernel {t['ms']:.4f} ms "
                   f"(device {t['device_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms "
-                  f"(device {t['plain_device_ms']:.4f} ms), library {t['library_ms']:.4f} ms, "
-                  f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+                  f"(device {t['plain_device_ms']:.4f} ms), library {t['library_ms']:.4f} ms "
+                  f"(device {_ms_text(t['library_device_ms'])}), "
+                  f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+                  f"{100 * t['bound_ms'] / t['device_ms']:.1f}% of it on device time")
         if shape[2] == 65_536:
             for name, t, err in (("forward", fwd, fwd_err), ("backward", bwd, bwd_err)):
                 entries.append({
@@ -753,36 +837,38 @@ def _profile(fn):
     return out, _kernel_totals(prof)
 
 
-K2_KERNELS = ("gram_partial", "gram_finish", "dist_backward")
+K2_KERNELS = ("pdist_fwd", "pdist_bwd")
 K3_KERNELS = ("xent_fwd", "xent_bwd")
 K4_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv",       # fp32
               "flash_mma_fwd", "flash_mma_bwd_dq", "flash_mma_bwd_dkdv")  # bf16
 
 
 def phase_k2_profile() -> None:
-    """torch.profiler over K2's kernels: device time per call. Printed only;
-    a trace with no device time prints "not measured"."""
+    """torch.profiler over K2's kernels at the dcor path's largest shape and
+    at a transformer's: device time per call. Printed only; a trace with no
+    device time prints "not measured"."""
     import torch
 
     from repro_torch.kernels import dcor
 
     g = torch.Generator(device="cuda").manual_seed(2)
-    x = torch.randn((5, 32, 65_536), generator=g, device="cuda")
-    dist = dcor.dist_forward(x)
-    gd = torch.randn(dist.shape, generator=g, device="cuda")
-    torch.cuda.synchronize()
-
-    def calls():
-        for _ in range(TIMED_ITERS):
-            dcor.dist_forward(x)
-            dcor.dist_backward(x, dist, gd)
+    for shape in ((5, 32, 65_536), (4, 4, 491_520)):
+        x = torch.randn(shape, generator=g, device="cuda")
+        dist = dcor.dist_forward(x)
+        gd = torch.randn(dist.shape, generator=g, device="cuda")
         torch.cuda.synchronize()
 
-    _, totals = _profile(calls)
-    for name in K2_KERNELS:
-        us = _named(totals, (name,))[1] * 1e6 / TIMED_ITERS
-        print(f"[profile] K2 {name} at (5, 32, 65536): "
-              + (f"{us / 1e3:.4f} ms device time per call" if us else "not measured"))
+        def calls():
+            for _ in range(TIMED_ITERS):
+                dcor.dist_forward(x)
+                dcor.dist_backward(x, dist, gd)
+            torch.cuda.synchronize()
+
+        _, totals = _profile(calls)
+        for name in K2_KERNELS:
+            us = _named(totals, (name,))[1] * 1e6 / TIMED_ITERS
+            print(f"[profile] K2 {name} at {shape}: "
+                  + (f"{us / 1e3:.4f} ms device time per call" if us else "not measured"))
 
 
 def phase_rounds_profile(label: str, argv: list[str], groups: dict) -> None:
@@ -891,10 +977,16 @@ def phase_k1_device_time(entry: dict) -> None:
 
     x = torch.randn((10, 2_097_152), generator=torch.Generator(device="cuda").manual_seed(0),
                     device="cuda")
+    scale = (x.abs().amax(dim=1) / 127.0).contiguous()
+    zero = torch.zeros(x.shape[0], dtype=torch.int32, device="cuda")
     entry["device_ms"] = _graph_ms(quantize.int8_roundtrip_rows, x)
     entry["plain_device_ms"] = _graph_ms(int8_roundtrip_ref, x)
+    # the yardstick of phase_kernels, in a CUDA graph
+    entry["library_device_ms"] = _graph_ms_or_none(
+        lambda t: torch.fake_quantize_per_channel_affine(t, scale, zero, 0, -127, 127), x)
     print(f"[kernels] int8_roundtrip at {tuple(x.shape)} fp32: device {entry['device_ms']:.4f} ms, "
-          f"plain device {entry['plain_device_ms']:.4f} ms")
+          f"plain device {entry['plain_device_ms']:.4f} ms, library device "
+          f"{_ms_text(entry['library_device_ms'])}")
 
 
 # K4 cases: (N, S, H, KV, hd, causal, window), each in bf16 and fp32; the

@@ -100,13 +100,35 @@ def test_pairwise_dist_wrapper_rejects_what_the_kernel_does_not_take():
         dcor.dist_backward(x, torch.ones(2, 4, 4), torch.ones(2, 4, 4).transpose(1, 2))
 
 
+def _tile_pairs(T):
+    """The forward's tile pair (ti, tj) of each grid index p, decoded as
+    ``pdist_fwd`` decodes it: ti <= tj, row-major over the upper triangle."""
+    out = []
+    for p in range(T * (T + 1) // 2):
+        ti, q = 0, p
+        while q >= T - ti:
+            q -= T - ti
+            ti += 1
+        out.append((ti, ti + q))
+    return out
+
+
 @pytest.mark.parametrize("C,B,F", [(5, 32, 65_536), (5, 32, 3_072), (3, 17, 1_001),
-                                   (1, 1, 5), (2, 200, 64)])
+                                   (1, 1, 5), (2, 200, 64), (4, 4, 491_520)])
 def test_split_chunk_covers_f(C, B, F):
-    chunk = dcor.split_chunk(C, B, F)
-    assert chunk % dcor.CHUNK_ALIGN == 0 and chunk >= dcor.CHUNK_ALIGN
-    splits = -(-F // chunk)
-    assert (splits - 1) * chunk < F <= splits * chunk
+    """The forward's grid: splits that cover F exactly in whole ring
+    stages, every tile pair ti <= tj once, and no more than a wave of the
+    H100's 132 SMs."""
+    plan = dcor.forward_plan(C, B, F, sms=132)
+    assert plan.chunk % plan.kt == 0 and plan.chunk >= plan.kt
+    assert plan.kt * plan.tile * (1 if B <= 32 else 2) == dcor.STAGE_FLOATS  # rows staged
+    assert (plan.splits - 1) * plan.chunk < F <= plan.splits * plan.chunk
+    assert (B <= 32) == (plan.pairs == 1) and (B > 32 or B <= plan.tile < max(2 * B, 5))
+    T = -(-B // plan.tile)
+    pairs = _tile_pairs(T) if B > 32 else [(0, 0)]
+    assert len(pairs) == plan.pairs
+    assert sorted(pairs) == [(i, j) for i in range(T) for j in range(i, T)]
+    assert C * plan.blocks <= 132 * max(dcor.BLOCKS_PER_SM.values())  # one wave
 
 
 @pytest.fixture
@@ -179,16 +201,20 @@ def _check_grad(got, want, x, dist, g):
     assert ((got - want).abs() <= 4 * _gamma(x.shape[1]) * scale + 1e-30).all()
 
 
+K2_CARD_SHAPES = [(5, 32, 65_536), (5, 32, 16_384), (5, 32, 3_072), (4, 4, 491_520),
+                  (3, 8, 10_000), (3, 17, 1_001), (2, 1, 100), (2, 70, 4_100)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(5, 32, 65_536), (5, 32, 16_384), (5, 32, 3_072),
-                                   (3, 17, 1_001), (2, 1, 100), (2, 70, 4_100)])
+@pytest.mark.parametrize("shape", K2_CARD_SHAPES)
 def test_pairwise_dist_kernels_match_plain_on_card(cuda_device, shape):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     x = torch.randn(shape, generator=g, device=cuda_device)
+    dcor.dist_forward(x)  # the first call on a device also zeroes its counters
     before = dict(dcor.LAUNCHES)
     got = dcor.dist_forward(x)
     torch.cuda.synchronize()
-    assert dcor.LAUNCHES["forward"] == before["forward"] + 2  # partial Grams, finish
+    assert dcor.LAUNCHES["forward"] == before["forward"] + 1  # one launch a forward
     _check_dist(got, pairwise_dist_ref(x), x)
 
     gd = torch.randn(got.shape, generator=g, device=cuda_device)
@@ -200,6 +226,28 @@ def test_pairwise_dist_kernels_match_plain_on_card(cuda_device, shape):
     xr = x.clone().requires_grad_(True)
     (auto,) = torch.autograd.grad((dcor.pairwise_dist(xr) * gd).sum(), xr)
     assert torch.equal(auto, gx)  # the autograd.Function runs the same kernels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(5, 32, 65_536), (4, 4, 491_520), (2, 70, 4_100)])
+def test_pairwise_dist_reruns_bit_identical_on_card(cuda_device, shape):
+    """No float atomics and every sum in a fixed order: the same bits on
+    every run, and inside a CUDA graph, whose replays reuse the counters."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(shape, generator=g, device=cuda_device)
+    d = dcor.dist_forward(x)
+    gd = torch.randn(d.shape, generator=g, device=cuda_device)
+    gx = dcor.dist_backward(x, d, gd)
+    for _ in range(3):
+        assert torch.equal(dcor.dist_forward(x), d)
+        assert torch.equal(dcor.dist_backward(x, d, gd), gx)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        d_graph = dcor.dist_forward(x)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(d_graph, d)
 
 
 @pytest.mark.cuda
