@@ -98,13 +98,38 @@ Phases (any failure exits non-zero and prints no result line):
      run (device busy share, K5's and K3's shares, the top kernels), printed
      only. Every profile records device activity only and reads the raw
      trace.
+ 16. population run: the same entry point on full-width ResNet-56, 64 of
+     100,000 lazily built clients a round (64 samples each, batch 32), the
+     chunked plane at 16 clients a chunk, ``--codec topk0.05``, 3 rounds.
+     Per round: wall, simulated clock, tiers, uplink bytes, the clients
+     touched (at most the sampled ones and client 0, whose batch size the
+     trainer reads), the clients holding residuals (every one sampled) and
+     the seconds of the residuals' host-device copies with their share of
+     the round's wall; then the peak device memory. Every parameter and aux
+     head must stay finite, and every round's uplink bytes must equal
+     ``wire_sizes``' own count.
+ 17. pairing loop run: 8 clients, 1,600 samples, ``--topology pairing
+     --exec loop --codec int8``, 3 rounds, under torch.profiler (device
+     activity only): per round the hosts, K1's launches (every round must
+     launch it: each single-client upload is one K1 call per leaf) and
+     their device time.
+ 18. events run: 10 clients, 2,000 samples, ``--engine events --churn
+     --codec topk0.05``, 3 rounds; per round wall, clock, straggler, tiers,
+     uplink bytes (checked as in 16) and the clients holding residuals.
+ 19. the reduced ResNet-56 on the card and on the CPU, as phase 6, with
+     top-k on the population plane (chunks of 2, 4 of 50 clients a round)
+     and with pairing on the loop plane (int8); hosts must be equal too.
+     Then the chunked plane (chunks of 2) against the cohort plane on the
+     card, with top-k, once with tier changes and once with every client on
+     tier 0: logs must be equal; the largest difference of parameters, aux
+     heads and residuals is printed, and whether they are bit-equal.
 Every phase first waits, up to CARD_WAIT_S seconds over the whole run, until
 the card has the device memory it needs free: another process on the same
 card (a second run started beside this one) may hold its memory until it
 ends. A phase that runs out of device memory while another process holds
 memory on the card is run again, in full, once that memory is free; any
 other failure, or a second one, ends the run. Each phase prints its peak
-of reserved memory.
+of reserved memory and its seconds.
 Then one JSON line of kernel measurements (K1, K2, K3, K4 and K5, forward
 and backward), the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -183,6 +208,7 @@ def _phase(label: str, need_gib: float, fn, *args):
     for attempt in (1, 2):
         _await_card(label, need_gib)
         torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
         try:
             out = fn(*args)
         except torch.OutOfMemoryError as e:
@@ -192,7 +218,8 @@ def _phase(label: str, need_gib: float, fn, *args):
             reason = str(e).splitlines()[0]
         else:
             print(f"[mem] {label}: peak reserved "
-                  f"{torch.cuda.max_memory_reserved() / 2**30:.3f} GiB")
+                  f"{torch.cuda.max_memory_reserved() / 2**30:.3f} GiB, "
+                  f"{time.perf_counter() - t0:.1f} s")
             return out
         # out of the except block, so that the failed attempt's tensors are freed
         print(f"[wait] {label}: out of device memory with {others:.2f} GiB held outside "
@@ -945,11 +972,13 @@ def phase_small_reference(argv: list[str], label: str,
         runs[device] = (logs, got["trainer"])
     (glogs, gtr), (clogs, ctr) = runs["cuda"], runs["cpu"]
     for a, b in zip(glogs, clogs):
-        if (a.clock, a.assignment, a.uplink_bytes) != (b.clock, b.assignment, b.uplink_bytes):
-            fail(f"{label} round {a.round}: clock/assignment/uplink differ between "
+        if ((a.clock, a.assignment, a.uplink_bytes, a.hosts)
+                != (b.clock, b.assignment, b.uplink_bytes, b.hosts)):
+            fail(f"{label} round {a.round}: clock/assignment/uplink/hosts differ between "
                  f"card and CPU")
     # the bounds of tests/test_torch_dtfl.py, in units of lr * local steps
-    unit = 1e-3 * 3 * max(c.n_batches for c in ctr.clients)
+    sampled = set().union(*(log.assignment for log in clogs))
+    unit = 1e-3 * 3 * max(ctr.clients[k].n_batches for k in sampled)
     names = _leaf_names(ctr.params)
     diffs = [np.abs(x - y) for x, y in zip(
         tree_leaves(to_numpy_tree(gtr.params)), tree_leaves(to_numpy_tree(ctr.params)))]
@@ -965,6 +994,296 @@ def phase_small_reference(argv: list[str], label: str,
     if d.max() > bounds[0] * unit or p99 > bounds[1] * unit or np.median(d) > bounds[2] * unit:
         fail(f"{label}: card and CPU parameters differ: max {d.max() / unit} U, "
              f"99th percentile {p99 / unit} U, median {np.median(d) / unit} U")
+
+
+POPULATION_ARGV = ["--arch", "resnet-56", "--full-size", "--population", "100000",
+                   "--sample-size", "64", "--samples", "64", "--batch-size", "32",
+                   "--exec", "chunked", "--chunk-size", "16", "--codec", "topk0.05",
+                   "--rounds", "3", "--device", "cuda"]
+PAIRING_ARGV = ["--arch", "resnet-56", "--full-size", "--clients", "8", "--samples", "1600",
+                "--topology", "pairing", "--exec", "loop", "--codec", "int8", "--rounds", "3",
+                "--device", "cuda"]
+EVENTS_ARGV = ["--arch", "resnet-56", "--full-size", "--clients", "10", "--samples", "2000",
+               "--engine", "events", "--churn", "--codec", "topk0.05", "--rounds", "3",
+               "--device", "cuda"]
+K1_KERNELS = ("absmax_rows", "qdq_rows")
+
+
+def _wire_check(label: str, trainer, log) -> None:
+    """A round's uplink bytes must be ``wire_sizes``' own count for its
+    participants' tiers and batch counts, from a table built anew."""
+    import numpy as np
+
+    from repro_torch.core.codec import wire_sizes
+
+    ks = sorted(log.assignment)
+    want = float(wire_sizes(trainer.costs, trainer.codec.name).uplink_bytes(
+        np.array([log.assignment[k] for k in ks]),
+        np.array([trainer.clients[k].n_batches for k in ks])).sum())
+    if log.uplink_bytes != want:
+        fail(f"{label} round {log.round}: uplink bytes {log.uplink_bytes} differ from "
+             f"wire_sizes' {want}")
+
+
+class _SentCount:
+    """Counts what a top-k codec really sends: wraps the trainer's
+    ``codec.rt`` (every activation uplink and every update upload goes
+    through it) and adds up, on the device, the rows whose non-zero count
+    exceeds k = ceil(frac * n), the rows with exactly k, and all rows.
+    ``wire_sizes`` prices k entries a row, so a row above k is a codec
+    that sends more than it is priced for."""
+
+    def __init__(self):
+        self.trainer = None
+        self.calls = 0
+
+    def install(self, trainer) -> None:
+        import torch
+
+        if self.trainer is not None:
+            return
+        self.trainer, codec, inner = trainer, trainer.codec, trainer.codec.rt
+        self.over, self.full, self.rows = (
+            torch.zeros((), dtype=torch.int64, device=trainer.device) for _ in range(3))
+
+        def rt(x):
+            out = inner(x)
+            if out.is_floating_point():
+                rows = out.reshape(out.shape[0], -1)
+                nnz = torch.count_nonzero(rows, dim=1)
+                k = codec._k(rows.shape[1])
+                self.over += (nnz > k).sum()
+                self.full += (nnz == k).sum()
+                self.rows += rows.shape[0]
+                self.calls += 1
+            return out
+
+        codec.rt = rt
+
+    def check(self, label: str) -> None:
+        over, full, rows = int(self.over), int(self.full), int(self.rows)
+        print(f"[{label}] top-k rows sent after round 0: {rows} in {self.calls} calls, "
+              f"{full} with exactly k non-zero entries, {over} with more")
+        if not self.calls or over or not full:
+            fail(f"{label}: {over} of {rows} sent rows hold more than k non-zero entries "
+                 f"({full} exactly k, {self.calls} calls)")
+
+
+def phase_population_run() -> None:
+    """The population plane at full width: 64 of 100,000 lazily registered
+    clients a round, trained 16 at a time (the chunked plane), top-k
+    uploads with error feedback whose residuals live in host memory. A
+    client is sampled at most once in 3 rounds here, so every residual
+    sent to the device is a fresh zero and none is read back."""
+    import torch
+
+    from repro_torch.launch import train
+
+    rounds, shapes, sent = [], {}, _SentCount()
+
+    def on_round(trainer, log):
+        if not shapes:
+            shapes.update(_check_trees_finite(trainer))
+        else:
+            _check_trees_finite(trainer, shapes)
+        _wire_check("population run", trainer, log)
+        sent.install(trainer)
+        rounds.append((log, trainer.clients.n_touched, len(trainer._ef), trainer.ef_copy_s))
+
+    torch.cuda.reset_peak_memory_stats()
+    logs = train.main(POPULATION_ARGV, on_round=on_round)
+    peak = torch.cuda.max_memory_allocated()
+    if len(logs) != 3:
+        fail(f"population run: expected 3 rounds, got {len(logs)}")
+    sent.check("population")
+    sampled, copied = set(), 0.0
+    for log, touched, n_ef, copy_s in rounds:
+        reused = len(sampled & set(log.assignment))
+        sampled |= set(log.assignment)
+        # the trainer reads client 0's batch size when it is built
+        if touched > len(sampled | {0}):
+            fail(f"population run round {log.round}: {touched} clients touched, "
+                 f"{len(sampled)} sampled so far")
+        if n_ef != len(sampled):
+            fail(f"population run round {log.round}: {n_ef} clients hold residuals, "
+                 f"{len(sampled)} were sampled")
+        print(f"[population] round {log.round}: wall {log.wall_s:.3f} s, sim clock "
+              f"{log.clock:.4f} s, tiers {sorted(set(log.assignment.values()))}, "
+              f"uplink_bytes {log.uplink_bytes:.0f}, clients touched {touched}, "
+              f"holding residuals {n_ef}, sampled again {reused}, residual gather + "
+              f"scatter {copy_s - copied:.4f} s ({(copy_s - copied) / log.wall_s:.1%} of "
+              f"the round's wall)")
+        copied = copy_s
+    print(f"[population] peak device memory {peak / 2**30:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated)")
+
+
+def _k1_device_ms_by_round(prof, per_round: list[int]) -> list:
+    """Device ms of the K1 kernels of each round, from the trace's kernels
+    in start order, split by the launch counts of ``per_round``; None where
+    the trace holds a different number of K1 kernels."""
+    from torch.autograd import DeviceType
+
+    evs = sorted((e.start_ns(), e.duration_ns())
+                 for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA
+                 and any(n in e.name() for n in K1_KERNELS))
+    if len(evs) != sum(per_round):
+        return [None] * len(per_round)
+    out, i = [], 0
+    for n in per_round:
+        out.append(sum(d for _, d in evs[i:i + n]) / 1e6)
+        i += n
+    return out
+
+
+def _pairing_loop_rounds(traced: bool):
+    """The pairing loop run; returns its logs with the K1 launches of each
+    round, and the profiler when ``traced``."""
+    from contextlib import nullcontext
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import quantize
+    from repro_torch.launch import train
+
+    rounds, shapes = [], {}
+
+    def on_round(trainer, log):
+        if not shapes:
+            shapes.update(_check_trees_finite(trainer))
+        else:
+            _check_trees_finite(trainer, shapes)
+        rounds.append((log, quantize.LAUNCHES))
+
+    quantize.LAUNCHES = 0
+    with (profile(activities=[ProfilerActivity.CUDA]) if traced else nullcontext()) as prof:
+        logs = train.main(PAIRING_ARGV, on_round=on_round)
+    if len(logs) != 3:
+        fail(f"pairing loop run: expected 3 rounds, got {len(logs)}")
+    per_round, before = [], 0
+    for log, count in rounds:
+        if count <= before:
+            fail(f"pairing loop run round {log.round} launched no int8_roundtrip kernel")
+        per_round.append(count - before)
+        before = count
+    return [log for log, _ in rounds], per_round, prof
+
+
+def phase_pairing_loop_run() -> None:
+    """Pairing topology on the loop plane with the int8 codec: every
+    single-client upload goes through K1 one leaf at a time; every round
+    must launch it. Run twice with the same flags: untraced for the walls,
+    then with device activity traced for K1's device time and the device's
+    busy time (the sum of every traced kernel, copy and set)."""
+    logs, per_round, _ = _pairing_loop_rounds(traced=False)
+    tlogs, tper_round, prof = _pairing_loop_rounds(traced=True)
+    if [(l.clock, l.assignment, l.hosts) for l in logs] != \
+            [(l.clock, l.assignment, l.hosts) for l in tlogs] or per_round != tper_round:
+        fail("pairing loop run: the traced run differs from the untraced one")
+    device_ms = _k1_device_ms_by_round(prof, per_round)
+    for log, tlog, n, ms in zip(logs, tlogs, per_round, device_ms):
+        print(f"[pairing] round {log.round}: wall {log.wall_s:.3f} s untraced "
+              f"({tlog.wall_s:.3f} s traced), sim clock {log.clock:.4f} s, tiers "
+              f"{sorted(set(log.assignment.values()))}, hosts {log.hosts}, uplink_bytes "
+              f"{log.uplink_bytes:.0f}, int8_roundtrip launches {n}, their device time "
+              + ("not measured" if ms is None else f"{ms:.4f} ms ({ms / n * 1e3:.2f} us a launch)"))
+    busy = sum(t for _, t in _kernel_totals(prof).values())
+    wall = sum(log.wall_s for log in logs)
+    print(f"[pairing] device busy {busy:.3f} s over the 3 traced rounds against "
+          f"{wall:.3f} s of untraced wall: idle share {1 - busy / wall:.1%}")
+    if not any(log.hosts for log in logs):
+        print("[pairing] no round had a peer host")
+
+
+def phase_events_run() -> None:
+    """The events engine with churn at full width, top-k uploads."""
+    from repro_torch.launch import train
+
+    shapes, rounds, sent = {}, [], _SentCount()
+
+    def on_round(trainer, log):
+        if not shapes:
+            shapes.update(_check_trees_finite(trainer))
+        else:
+            _check_trees_finite(trainer, shapes)
+        _wire_check("events run", trainer, log)
+        sent.install(trainer)
+        rounds.append((log, len(trainer._ef)))
+
+    logs = train.main(EVENTS_ARGV, on_round=on_round)
+    if len(logs) != 3:
+        fail(f"events run: expected 3 rounds, got {len(logs)}")
+    sent.check("events")
+    for log, n_ef in rounds:
+        print(f"[events] round {log.round}: wall {log.wall_s:.3f} s, sim clock "
+              f"{log.clock:.4f} s, straggler {log.straggler:.4f} s, tiers "
+              f"{sorted(set(log.assignment.values()))}, uplink_bytes {log.uplink_bytes:.0f}, "
+              f"clients holding residuals {n_ef}")
+
+
+def _u_stats(pairs, unit: float) -> tuple[float, float, float]:
+    """(max, 99th percentile, median) of |x - y| over ``pairs``, in U."""
+    import numpy as np
+
+    d = np.concatenate([np.abs(x - y).ravel() for x, y in pairs])
+    return d.max() / unit, np.quantile(d, 0.99) / unit, np.median(d) / unit
+
+
+# tests/test_torch_planes.py's bounds, in U: parameters; aux heads and
+# residuals; the share of residual entries zero on one side only
+PLANE_BOUNDS, EF_BOUNDS, EF_FLIPS = (0.5, 0.1, 0.01), (0.5, 0.2, 0.01), 0.05
+
+
+def phase_chunked_vs_cohort(argv: list[str], label: str, tight: float | None = None) -> None:
+    """The same small run on the chunked and the cohort plane, on the card:
+    logs must be equal, residuals held by the same clients at the same
+    tiers. The parameters, aux heads and residuals are held to
+    ``tests/test_torch_planes.py``'s bounds, or, with ``tight``, every one
+    of them to a max of ``tight`` U. Prints whether they are bit-equal."""
+    import numpy as np
+
+    from repro_torch.bridge import to_numpy_tree
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+
+    runs = {}
+    for plane in (["--exec", "cohort"], ["--exec", "chunked", "--chunk-size", "2"]):
+        got = {}
+        logs = train.main(argv + plane + ["--device", "cuda"],
+                          on_round=lambda tr, log: got.update(trainer=tr))
+        runs[plane[1]] = (logs, got["trainer"])
+    (alogs, atr), (blogs, btr) = runs["cohort"], runs["chunked"]
+    for a, b in zip(alogs, blogs):
+        if (a.clock, a.assignment, a.uplink_bytes) != (b.clock, b.assignment, b.uplink_bytes):
+            fail(f"chunked vs cohort round {a.round}: clock/assignment/uplink differ")
+    if {c: st["tier"] for c, st in atr._ef.items()} != {c: st["tier"] for c, st in btr._ef.items()}:
+        fail(f"chunked vs cohort, {label}: residuals held by other clients or tiers")
+    pairs = lambda ta, tb: list(zip(tree_leaves(to_numpy_tree(ta)), tree_leaves(to_numpy_tree(tb))))
+    unit = 1e-3 * 3 * max(atr.clients[k].n_batches
+                          for k in set().union(*(log.assignment for log in alogs)))
+    groups = [("parameters", pairs(atr.params, btr.params), PLANE_BOUNDS)]
+    groups += [(f"aux {m}", pairs(atr.aux[m], btr.aux[m]), EF_BOUNDS) for m in sorted(atr.aux)]
+    groups += [(f"residual {c}{k}", pairs(atr._ef[c][k], btr._ef[c][k]), EF_BOUNDS)
+               for c in sorted(atr._ef) for k in "ca"]
+    ef = [p for name, ps, _ in groups if name.startswith("residual") for p in ps]
+    flips = sum(int(((x == 0) != (y == 0)).sum()) for x, y in ef)
+    n_ef = sum(x.size for x, _ in ef)
+    worst = max(_u_stats(ps, unit)[0] for _, ps, _ in groups)
+    equal = all(np.array_equal(x, y) for _, ps, _ in groups for x, y in ps)
+    print(f"[chunked] {label}: chunks of 2 against the cohort plane on the card, logs "
+          f"equal; parameters {_u_stats(groups[0][1], unit)} U (max, 99th percentile, "
+          f"median), worst max over parameters, aux heads and residuals {worst:.3g} U, "
+          f"residual entries flipped {flips} of {n_ef}, "
+          + ("bit-equal" if equal else "not bit-equal"))
+    for name, ps, bounds in groups:
+        stats = _u_stats(ps, unit)
+        if (stats[0] > tight if tight is not None
+                else any(x > b for x, b in zip(stats, bounds))):
+            fail(f"chunked vs cohort, {label}: {name} apart by {stats} U (max, 99th "
+                 f"percentile, median), bound " + (f"max {tight}" if tight else f"{bounds}"))
+    if flips > EF_FLIPS * n_ef:
+        fail(f"chunked vs cohort, {label}: {flips} of {n_ef} residual entries flipped")
 
 
 def phase_k1_device_time(entry: dict) -> None:
@@ -1613,6 +1932,23 @@ def main() -> None:
     # 99th percentile to 0.3 U, the median to the default 0.01 U
     _phase("xLSTM reference", 1, partial(phase_small_reference, bounds=(1.0, 0.3, 0.01)),
            XLSTM_SMALL, "xLSTM token-LM")
+    _phase("population run", 11, phase_population_run)
+    _phase("pairing loop run", 2, phase_pairing_loop_run)
+    _phase("events run", 7, phase_events_run)
+    _phase("population reference", 1, phase_small_reference,
+           RESNET_SMALL + ["--codec", "topk0.05", "--exec", "chunked", "--chunk-size", "2",
+                           "--population", "50", "--sample-size", "4"], "top-k population")
+    _phase("pairing reference", 1, phase_small_reference,
+           RESNET_SMALL + ["--topology", "pairing", "--exec", "loop", "--codec", "int8"],
+           "pairing loop int8")
+    _phase("chunked vs cohort", 1, phase_chunked_vs_cohort,
+           RESNET_SMALL + ["--codec", "topk0.05"], "reduced resnet-56, top-k")
+    # every client on tier 0: the card read a max of 0.000194 U (H100 80GB
+    # HBM3, 700 W), one chunk width's matrix products against another's;
+    # held to 0.001 U, below what one flipped top-k entry moves (up to 0.13 U)
+    _phase("chunked vs cohort, tier 0", 1, phase_chunked_vs_cohort,
+           RESNET_SMALL + ["--codec", "topk0.05", "--scheduler", "0"],
+           "reduced resnet-56, top-k, every client on tier 0", 0.001)
     entry["launches"] = k1_launches
     _phase("K1 device time", 1, phase_k1_device_time, entry)
     k2_fwd, k2_bwd = _phase("K2 times", 1, phase_k2_times, *k2_err)

@@ -13,11 +13,16 @@ axis (``fed/dtfl.py:167``): ``tree_down_rt`` sends each leaf as one row.
 The int8 codec sends a CUDA tensor through the K1 kernel and a CPU tensor
 through its plain version; there is no switch between them.
 
-Ported: identity, bf16, int8. ``TopKCodec`` and the error-feedback helpers
-come in a later slice.
+``TopKCodec`` is stateful: the client keeps what its upload did not send
+(error feedback) and adds it to the next upload. The trainer routes every
+upload through :func:`uplink_rt` or :func:`uplink_rt_ef` over a chunk's
+client axis, rows = clients; the loop plane's chunks have one client, so one
+leaf is one wire tensor for every codec, as the JAX package's
+``uplink_rt_one`` sends it.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -37,6 +42,7 @@ class Codec:
 
     name = "identity"
     is_identity = True
+    stateful = False          # True => uploads carry client-held error feedback
 
     # ---- tensor path ----
     def rt(self, x):
@@ -59,6 +65,19 @@ class Codec:
         if self.is_identity:
             return tree
         return tree_map(lambda x: self.down_rt(x[None])[0], tree)
+
+    def rt_ef(self, x, e):
+        """Error-feedback round trip of each row: compress ``x + e``; the
+        unsent part is the next residual."""
+        s = x + e
+        d = self.rt(s)
+        return d, s - d
+
+    def tree_rt_ef(self, tree, ef):
+        """:meth:`rt_ef` leaf-wise: ``(sent tree, new residual tree)``."""
+        pairs = tree_map(self.rt_ef, tree, ef)
+        return (tree_map(lambda _, p: p[0], tree, pairs),
+                tree_map(lambda _, p: p[1], tree, pairs))
 
     # ---- wire pricing (numpy, analytic — never runs the codec) ----
     def nbytes(self, n_elems):
@@ -110,8 +129,70 @@ class Int8Codec(Codec):
         return np.asarray(n_elems, float) + FP32_BYTES
 
 
+class TopKCodec(Codec):
+    """Magnitude top-k sparsification with client-held error feedback
+    (pair: ``repro/core/codec.py:154``).
+
+    Keeps the ``ceil(frac * n)`` largest-|x| entries of each row, n being
+    one row's element count (value + index on the wire: 8 bytes each), and
+    zeroes the rest; with rows = clients this is ``jax.vmap`` over the JAX
+    package's per-tensor ``rt``. The download wire is not sparsified
+    (``down_rt`` is the identity, priced dense): error feedback lives on the
+    client and cannot make up for a truncated broadcast.
+
+    Ties: ``torch.topk`` and ``jax.lax.top_k`` may keep different entries
+    among equal |x| at the k-th magnitude. Ties at |x| = 0 change nothing:
+    the kept value and the residual are zero either way.
+    """
+
+    is_identity = False
+    stateful = True
+
+    def __init__(self, frac: float):
+        if not (0.0 < frac <= 1.0):
+            raise ValueError(f"topk fraction must be in (0, 1], got {frac}")
+        self.frac = float(frac)
+        self.name = f"topk{self.frac:g}"
+
+    def _k(self, n: int) -> int:
+        return max(1, int(math.ceil(self.frac * n)))
+
+    def rt(self, x):
+        if not _is_float(x):
+            return x
+        rows = x.reshape(x.shape[0], -1)
+        k = self._k(rows.shape[1])
+        if k >= rows.shape[1]:
+            return x
+        _, idx = torch.topk(rows.float().abs(), k, dim=1)
+        out = torch.zeros_like(rows).scatter_(1, idx, rows.gather(1, idx))
+        return out.reshape(x.shape)
+
+    def down_rt(self, x):
+        return x          # dense broadcast (see class docstring)
+
+    def nbytes(self, n_elems):
+        n = np.asarray(n_elems, float)
+        k = np.maximum(1.0, np.ceil(self.frac * n))
+        return 8.0 * k   # fp32 value + int32 index per kept entry
+
+    def down_nbytes(self, n_elems):
+        return FP32_BYTES * np.asarray(n_elems, float)   # dense download
+
+
+def _parse_topk(s: str) -> "float | None":
+    """``topk<frac>`` / ``topk:<frac>`` with frac in (0, 1], as
+    ``repro/registry.py:281-288`` parses it; None if ``s`` is not one."""
+    try:
+        frac = float(s[4:].lstrip(":"))
+    except ValueError:
+        return None
+    return frac if 0.0 < frac <= 1.0 else None
+
+
 def make_codec(spec: "Codec | str | None") -> Codec:
-    """Resolve a codec spec: None | 'identity' | 'bf16' | 'int8' | a Codec."""
+    """Resolve a codec spec: None | 'identity' | 'bf16' | 'int8' |
+    'topk<frac>' (e.g. ``topk0.05``) | a Codec."""
     if spec is None:
         return IdentityCodec()
     if isinstance(spec, Codec):
@@ -123,9 +204,10 @@ def make_codec(spec: "Codec | str | None") -> Codec:
         return Bf16Codec()
     if s == "int8":
         return Int8Codec()
-    if s.startswith("topk"):
-        raise NotImplementedError(f"codec {spec!r} is not yet ported")
-    raise ValueError(f"unknown codec {spec!r}; choose identity | bf16 | int8")
+    if s.startswith("topk") and _parse_topk(s) is not None:
+        return TopKCodec(_parse_topk(s))
+    raise ValueError(f"unknown codec {spec!r}; choose identity | bf16 | int8 | "
+                     "topk<frac> (e.g. topk0.05)")
 
 
 # ---------------------------------------------------------------------------
@@ -142,6 +224,15 @@ def uplink_rt(codec: Codec, trained, ref):
     delta = tree_map(lambda t, r: t - r[None], trained, ref)
     dec = codec.tree_rt(delta)
     return tree_map(lambda r, d: r[None] + d, ref, dec)
+
+
+def uplink_rt_ef(codec: Codec, trained, ref, ef):
+    """:func:`uplink_rt` with client-held error feedback: ``ef`` (leading
+    client axis) is what each client failed to send last round; returns the
+    reconstructed uploads and the new residuals."""
+    delta = tree_map(lambda t, r: t - r[None], trained, ref)
+    dec, ef2 = codec.tree_rt_ef(delta, ef)
+    return tree_map(lambda r, d: r[None] + d, ref, dec), ef2
 
 
 # ---------------------------------------------------------------------------

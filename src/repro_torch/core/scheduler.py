@@ -1,8 +1,8 @@
 """Dynamic tier scheduler — Algorithm 1 of the paper.
 
-Verbatim copy of ``repro/core/scheduler.py:1`` up to ``StaticScheduler``
-(``:313``), with its imports pointed at the port; ``PairingScheduler``
-comes with the topology plane.
+Verbatim copy of ``repro/core/scheduler.py:1``, with its imports pointed at
+the port: Algorithm 1, ``StaticScheduler`` and the pairing scheduler
+(``_greedy_pairs``, ``_hungarian_pairs``, ``PairingScheduler``, ``:335``).
 
 Host-side (numpy) component. The scheduler sees ONLY what the paper's server
 sees per round:
@@ -330,3 +330,164 @@ class StaticScheduler:
     def schedule(self, participants=None) -> dict[int, int]:
         ks = range(self.n) if participants is None else participants
         return {k: self.tier for k in ks}
+
+
+# ---------------------------------------------------------------------------
+# Pairing / mutual-offload scheduling (arxiv 2308.13849)
+# ---------------------------------------------------------------------------
+
+def _greedy_pairs(C: np.ndarray) -> list[tuple[int, int]]:
+    """Slowest-guest-first greedy matching on a square cost matrix."""
+    n = C.shape[0]
+    order = np.argsort(-C.min(axis=1), kind="stable")   # most expensive first
+    taken: set[int] = set()
+    pairs = []
+    for gi in order:
+        free = [h for h in range(n) if h not in taken]
+        hi = min(free, key=lambda h: C[gi, h])
+        taken.add(hi)
+        pairs.append((int(gi), int(hi)))
+    return sorted(pairs)
+
+
+def _hungarian_pairs(C: np.ndarray) -> list[tuple[int, int]]:
+    """Minimum-total-cost perfect matching. Uses scipy's Jonker-Volgenant
+    solver when available; otherwise exact enumeration for small instances
+    and the greedy matching beyond (documented approximation)."""
+    n = C.shape[0]
+    try:
+        from scipy.optimize import linear_sum_assignment
+    except ImportError:
+        if n <= 8:
+            import itertools
+
+            best, best_cost = None, np.inf
+            for perm in itertools.permutations(range(n)):
+                cost = sum(C[i, j] for i, j in enumerate(perm))
+                if cost < best_cost:
+                    best, best_cost = perm, cost
+            return [(i, int(j)) for i, j in enumerate(best)]
+        return _greedy_pairs(C)
+    rows, cols = linear_sum_assignment(C)
+    return sorted(zip(rows.tolist(), cols.tolist()))
+
+
+class PairingScheduler(DynamicTierScheduler):
+    """Mutual-offload tiers: fast clients host slow clients' far halves.
+
+    Extends Algorithm 1 with the pairing idea of "Effectively Heterogeneous
+    Federated Learning: A Pairing and Split Learning Based Approach" (arxiv
+    2308.13849): after the baseline DTFL tier assignment, the observed-fast
+    half of the cohort is offered as hosts and the observed-slow half as
+    guests, and a minimum-cost perfect matching (greedy or Hungarian) over
+    the pair-cost matrix decides who offloads to whom.  Unmatched and
+    homogeneous cohorts fall back to the classic all-server schedule, so the
+    first rounds (no observations yet) are identical to DTFL.
+
+    ``schedule()`` returns the generalized assignment ``cid ->
+    Assignment(tier, host)`` (core/topology.py); ``host == SERVER`` is the
+    classic case.  Everything the scheduler uses is observable server-side:
+    EMA'd client compute times, communicated link speeds ``nu``, and the
+    profiling table (extended with ``server_speedup`` so a far half can be
+    priced on a *client* profile).
+    """
+
+    provides_hosts = True
+
+    def __init__(self, profile: TierProfile, n_clients: int, *,
+                 method: str = "hungarian", ema_alpha: float = 0.5,
+                 init_tier: int | None = None, allowed: list[int] | None = None,
+                 min_spread: float = 1.5):
+        if method not in ("hungarian", "greedy"):
+            raise ValueError(f"pairing method {method!r} not in "
+                             "('hungarian', 'greedy')")
+        super().__init__(profile, n_clients, ema_alpha=ema_alpha,
+                         init_tier=init_tier, allowed=allowed)
+        self.method = method
+        self.min_spread = float(min_spread)
+        self.last_hosts: dict[int, int] = {}   # guest cid -> host cid
+
+    # ---- observed relative compute speed (1.0 = profiling reference) ----
+    def speed(self, k: int) -> float | None:
+        if not self.clients.is_touched(k):
+            return None
+        st = self.clients[k]
+        if st.last_obs_tier is None:
+            return None
+        m0 = st.last_obs_tier
+        ref = self.profile.t_client_ref[m0] * st.n_batches
+        return float(ref / max(st.ema[m0].value, 1e-12))
+
+    def _pair_costs(self, guests: list[int], hosts: list[int],
+                    base: dict[int, int]) -> tuple[np.ndarray, np.ndarray]:
+        """Pair-cost matrix C[g, h] = best-tier completion time of the pair,
+        and T[g, h] = that minimizing tier.
+
+        Per tier m: the guest computes its near half (EMA-extrapolated, the
+        Table-2 invariance), the wire is the bottleneck of the two ends'
+        links, the far half runs at the host's observed speed
+        (``t_server_ref * server_speedup / speed_host``), and hosting is
+        serialized after the host's own round."""
+        prof = self.profile
+        sel = np.array(self.allowed)
+        C = np.full((len(guests), len(hosts)), np.inf)
+        T = np.zeros((len(guests), len(hosts)), int)
+        for i, g in enumerate(guests):
+            st_g = self.clients[g]
+            m0 = st_g.last_obs_tier
+            nb = float(st_g.n_batches)
+            t_cli = (prof.t_client_ref / prof.t_client_ref[m0]
+                     * st_g.ema[m0].value)[sel]
+            for j, h in enumerate(hosts):
+                st_h = self.clients[h]
+                link = min(st_g.nu, st_h.nu)
+                t_com = (prof.z_bytes[sel] * nb + prof.param_bytes[sel]) / link
+                t_far = (prof.t_server_ref[sel] * prof.server_speedup * nb
+                         / self.speed(h))
+                host_busy = self._row(h)[base[h]]
+                pair = np.maximum(t_cli + t_com,
+                                  np.maximum(t_far + t_com, host_busy + t_far))
+                m = int(pair.argmin())
+                C[i, j] = float(pair[m])
+                T[i, j] = int(sel[m])
+        return C, T
+
+    def schedule(self, participants: list[int] | None = None) -> dict:
+        from repro_torch.core.topology import SERVER, Assignment
+
+        ks = (list(range(len(self.clients))) if participants is None
+              else list(participants))
+        base = super().schedule(ks)                      # Algorithm 1 tiers
+        out = {k: Assignment(base[k], SERVER) for k in ks}
+        self.last_hosts = {}
+
+        speeds = {k: self.speed(k) for k in ks}
+        known = [k for k in ks if speeds[k] is not None]
+        if len(known) >= 2:
+            vals = np.array([speeds[k] for k in known])
+            spread_ok = vals.max() >= self.min_spread * vals.min()
+        else:
+            spread_ok = False
+        if not spread_ok:
+            return out                                    # server fallback
+
+        # fast half hosts, slow half guests; odd middle stays on the server
+        order = sorted(known, key=lambda k: (-speeds[k], k))
+        n_pairs = len(order) // 2
+        if n_pairs == 0:
+            return out
+        hosts = order[:n_pairs]
+        guests = order[-n_pairs:]
+        C, T = self._pair_costs(guests, hosts, base)
+        pairs = (_greedy_pairs(C) if self.method == "greedy"
+                 else _hungarian_pairs(C))
+
+        # accept a pair only if it does not worsen the projected straggler
+        t_round = max(float(self._row(k)[base[k]]) for k in ks)
+        for gi, hi in pairs:
+            g, h = guests[gi], hosts[hi]
+            if C[gi, hi] <= t_round:
+                out[g] = Assignment(int(T[gi, hi]), h)
+                self.clients[g].tier = int(T[gi, hi])
+                self.last_hosts[g] = h
+        return out

@@ -4,8 +4,8 @@ Participants are grouped into *cohorts* by (tier, per-batch sample shape);
 each client's local steps are materialized and stacked into
 ``(n_steps, n_clients, batch, ...)`` arrays; ragged cohorts are padded with
 zero batches and a ``(n_steps, n_clients)`` mask gates the state update,
-so padded steps leave that client untouched. ``build_cohorts`` is a
-verbatim copy.
+so padded steps leave that client untouched. ``build_cohorts``,
+``chunk_slices`` and ``slice_clients`` are verbatim copies.
 
 ``run_cohort`` replaces the JAX package's ``vmap`` + ``scan``
 (``cohort.py:151-169``): a Python loop over steps on an explicit client
@@ -90,6 +90,25 @@ def build_cohorts(
     return cohorts
 
 
+def chunk_slices(n_cols: int, chunk_size: int) -> list[slice]:
+    """Client-axis slices cutting a padded cohort into fixed-size chunks.
+
+    The chunked ExecPlan builds cohorts with ``pad_multiple=chunk_size``, so
+    ``n_cols`` (real + pad clients) is always divisible and every chunk has
+    the same static shape — one compiled per-chunk program serves them all.
+    """
+    if n_cols % chunk_size:
+        raise ValueError(
+            f"cohort client axis {n_cols} is not a multiple of chunk_size "
+            f"{chunk_size}; build cohorts with pad_multiple=chunk_size")
+    return [slice(i, i + chunk_size) for i in range(0, n_cols, chunk_size)]
+
+
+def slice_clients(batches: dict, mask: np.ndarray, sl: slice) -> tuple[dict, np.ndarray]:
+    """One client-chunk's view of a cohort's stacked batches + step mask."""
+    return {k: v[:, sl] for k, v in batches.items()}, mask[:, sl]
+
+
 def _pad_steps(a: np.ndarray, s_max: int) -> np.ndarray:
     if len(a) == s_max:
         return a
@@ -130,13 +149,17 @@ def run_cohort(step_fn, state, batches: dict, mask: np.ndarray):
     ``batches``: name -> (S, C, ...) tensors on the state's device; ``mask``:
     (S, C) bool numpy. A step whose mask is all True takes the new state as
     it is (``torch.where`` would return it unchanged); otherwise masked
-    (padded) steps leave that client's state untouched. Returns the final
-    state and the list of per-step outputs."""
+    (padded) steps leave that client's state untouched, and a step whose
+    mask is all False (a chunk whose clients have all run out of batches)
+    is not run. Returns the final state and the list of the run steps'
+    outputs."""
     n_steps, n_clients = mask.shape
     state = broadcast_state(state, n_clients)
     device = next(iter(batches.values())).device
     outs = []
     for s in range(n_steps):
+        if not mask[s].any():
+            continue
         new_state, out = step_fn(state, {k: v[s] for k, v in batches.items()})
         if mask[s].all():
             state = new_state

@@ -11,14 +11,22 @@ Per round, as in the JAX package's cohort plane:
   4. halves are merged and FedAvg'd with weights N_k/N; per-tier aux heads
      are averaged within their tier;
   5. the wire codec round-trips the activation uplink ``z``, the
-     client-model download and the client-update upload (delta-coded), and
-     its true byte counts drive the simulated times and the scheduler.
+     client-model download and the client-update upload (delta-coded, with
+     client-held error feedback for top-k), and its true byte counts drive
+     the simulated times and the scheduler.
 
-This slice ports the cohort plane with the classic all-server topology.
-The loop, sharded and chunked planes, pairing, checkpoints and the
-events/async engines come later.
+The :class:`~repro_torch.fed.execplan.ExecPlan` picks the plane, that is
+how many clients one cohort program takes: ``cohort`` (the whole cohort),
+``chunked`` (``chunk_size`` clients at a time) or ``loop`` (one client at a
+time); all three run ``DTFLTrainer._train_chunked``. ``topology="pairing"``
+lets fast clients host slow clients' far halves in the time model
+(``core/topology.py``); training is the same. The rounds and events
+engines run it (``fed/engine.py``). The sharded plane, checkpoints and the
+async engine are not yet ported.
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -26,21 +34,31 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import aggregation, timemodel
 from repro_torch.core import codec as codec_lib
-from repro_torch.core.scheduler import DynamicTierScheduler, StaticScheduler, TierProfile
+from repro_torch.core import topology as topology_lib
+from repro_torch.core.scheduler import (DynamicTierScheduler, PairingScheduler,
+                                        StaticScheduler, TierProfile)
 from repro_torch.fed import cohort as cohort_engine
 from repro_torch.fed import engine as round_engine
 from repro_torch.fed.adapter import DTFLStepState
 from repro_torch.fed.client import HeteroEnv, SimClient
 from repro_torch.fed.engine import RoundLog, RoundPlan
+from repro_torch.fed.execplan import ExecPlan
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+TOPOLOGIES = ("server", "pairing")
 
 
 def make_scheduler(spec: "str | int", profile: TierProfile, n_clients: int):
-    """``"dynamic"`` -> Algorithm 1; an integer (or its string) -> that
+    """``"dynamic"`` -> Algorithm 1; ``"pairing"`` / ``"pairing:hungarian"``
+    / ``"pairing:greedy"`` -> the pairing scheduler
+    (``repro/registry.py:233-245``); an integer (or its string) -> that
     fixed 0-based tier for every client."""
     s = str(spec).strip().lower()
     if s == "dynamic":
         return DynamicTierScheduler(profile, n_clients)
+    if s in ("pairing", "pairing:hungarian", "pairing:greedy"):
+        method = s.split(":", 1)[1] if ":" in s else "hungarian"
+        return PairingScheduler(profile, n_clients, method=method)
     try:
         tier = int(s)
     except ValueError:
@@ -75,9 +93,11 @@ class DTFLTrainer:
         optimizer,
         *,
         scheduler: "str | int" = "dynamic",
+        topology: str = "server",
         seed: int = 0,
         local_epochs: int = 1,
         server_flops: float = timemodel.SERVER_FLOPS,
+        exec_plan: "ExecPlan | str | None" = None,
         codec: "codec_lib.Codec | str | None" = None,
         device: "str | torch.device | None" = None,
     ):
@@ -94,6 +114,10 @@ class DTFLTrainer:
         self.costs = adapter.tier_costs(clients[0].dataset.batch_size)
         self.codec = codec_lib.make_codec(codec)
         self.wires = codec_lib.wire_sizes(self.costs, self.codec)
+        # cid -> error-feedback residuals, CPU tensors (stateful codecs)
+        self._ef: dict[int, dict] = {}
+        # host seconds spent gathering and scattering residuals (see below)
+        self.ef_copy_s = 0.0
         self.last_uplink_bytes = 0.0
         profile = TierProfile.from_cost_table(
             self.costs,
@@ -101,15 +125,33 @@ class DTFLTrainer:
             server_flops=server_flops,
             wires=self.wires,
         )
+        # topology and scheduler checks of repro/fed/dtfl.py:90-106
+        if topology not in TOPOLOGIES:
+            raise ValueError(f"unknown topology {topology!r}; choose from {TOPOLOGIES}")
+        if topology == "pairing" and scheduler == "dynamic":
+            scheduler = "pairing"
         self.sched = make_scheduler(scheduler, profile, len(clients))
+        provides_hosts = getattr(self.sched, "provides_hosts", False)
+        if topology == "pairing" and not provides_hosts:
+            raise ValueError(
+                "topology='pairing' requires a host-providing scheduler "
+                "(scheduler='pairing' or 'pairing:greedy'), got "
+                f"{scheduler!r}")
+        self.topology = "pairing" if provides_hosts else "server"
+        self.last_hosts: dict[int, int] | None = None
         # per-tier aux heads, persistent and aggregated within tier cohorts
         self.aux = {
             m: self._to_device(adapter.aux_init(self.gen, m))
             for m in range(adapter.n_tiers)
         }
+        self.exec_plan = ExecPlan.resolve(exec_plan)
 
     def _to_device(self, tree):
         return tree_map(lambda t: t.to(self.device), tree)
+
+    def _batches(self, batches: dict) -> dict:
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                for k, v in batches.items()}
 
     # ------------------------------------------------------------------
     def _raw_step(self, tier: int):
@@ -138,11 +180,13 @@ class DTFLTrainer:
     def _cohort_program(self, tier: int):
         """One tier's cohort: split, download wire, optimizer init, the steps
         over the client axis, upload wire, merge. Returns the merged trees
-        and the uploaded aux heads, both with the client axis."""
+        and the uploaded aux heads, both with the client axis; a stateful
+        codec takes the cohort's residuals ``efc``, ``efa`` (client axis) and
+        also returns the new ones (``repro/fed/dtfl.py:174-189``)."""
         ad, opt, codec = self.adapter, self.opt, self.codec
         step = self._raw_step(tier)
 
-        def run(params, aux, batches, mask):
+        def run(params, aux, batches, mask, efc=None, efa=None):
             cp, sp = ad.split(params, tier)
             cp, auxd = codec.tree_down_rt(cp), codec.tree_down_rt(aux)
             # passed without a name here, so the single-client optimizer
@@ -150,6 +194,10 @@ class DTFLTrainer:
             final, _ = cohort_engine.run_cohort(
                 step, DTFLStepState(cp, auxd, sp, opt.init(cp), opt.init(auxd), opt.init(sp)),
                 batches, mask)
+            if codec.stateful:
+                upc, efc2 = codec_lib.uplink_rt_ef(codec, final.client, cp, efc)
+                upa, efa2 = codec_lib.uplink_rt_ef(codec, final.aux, auxd, efa)
+                return ad.merge(upc, final.server), upa, efc2, efa2
             upc = codec_lib.uplink_rt(codec, final.client, cp)
             upa = codec_lib.uplink_rt(codec, final.aux, auxd)
             return ad.merge(upc, final.server), upa
@@ -163,30 +211,45 @@ class DTFLTrainer:
         """Profile switching + Algorithm-1 scheduling + analytic Eq.-5 times.
         Pure planning: no parameter updates, no scheduler observations."""
         self.env.maybe_switch(r)
-        assign = self.sched.schedule(participants)
+        # narrow cid->tier schedules and pairing's cid->(tier, host) both
+        # become an OffloadTopology; plan.assign stays the narrow tier view
+        topo = topology_lib.OffloadTopology.from_schedule(
+            self.sched.schedule(participants))
+        assign = topo.tiers()
         tiers = np.array([assign[k] for k in participants])
         profs = [self.env.profile(k) for k in participants]
         bps = np.array([p.bytes_per_s for p in profs])
         nb = np.array([self.clients[k].n_batches for k in participants])
-        t = timemodel.simulate_client_times_batch(
-            self.costs, tiers, np.array([p.flops for p in profs]), bps, nb,
-            server_flops=self.server_flops, n_sharing=len(participants),
-            wires=self.wires,
-        )
-        # codec-true client->server bytes of this round (z uplink + update
+        if topo.is_server_only:
+            t = timemodel.simulate_client_times_batch(
+                self.costs, tiers, np.array([p.flops for p in profs]), bps, nb,
+                server_flops=self.server_flops, n_sharing=len(participants),
+                wires=self.wires,
+            )
+            obs_nu = bps
+        else:
+            t = topology_lib.simulate_times(
+                self.costs, topo, participants, profs, nb,
+                server_flops=self.server_flops, wires=self.wires)
+            obs_nu = t["link"]   # guests report the pair link, not their uplink
+        # codec-true client->host bytes of this round (z uplink + update
         # upload), surfaced per round through RoundLog.uplink_bytes
         self.last_uplink_bytes = float(self.wires.uplink_bytes(tiers, nb).sum())
+        self.last_hosts = (None if topo.is_server_only else
+                           {k: h for k, h in topo.hosts().items()
+                            if h != topology_lib.SERVER})
         return RoundPlan(
             participants=list(participants), trained=list(participants),
             assign=assign, times=t["total"],
-            obs={"t": t["client"] + t["comm"], "nu": bps, "nb": nb},
+            obs={"t": t["client"] + t["comm"], "nu": obs_nu, "nb": nb},
+            topology=topo,
         )
 
     def execute_round(self, r: int, plan: RoundPlan, trained: list[int]) -> float:
         if not trained:
             return 0.0
         with torch.no_grad():
-            self.params = self._train_cohorts(r, trained, plan.assign)
+            self.params = self._train_chunked(r, trained, plan.assign)
         return 0.0
 
     def observe_round(self, plan: RoundPlan, idx: list[int], obs_times, totals) -> None:
@@ -206,28 +269,111 @@ class DTFLTrainer:
         self.observe_round(plan, list(range(len(plan.trained))), plan.obs["t"], plan.times)
         return float(plan.times.max()), plan.assign
 
-    def _train_cohorts(self, r, participants, assign):
-        """One cohort program per (tier, shape) cohort. Returns the N_k/N
-        aggregated global tree; updates per-tier aux heads."""
+    def _train_chunked(self, r, participants, assign):
+        """Every plane: each (tier, shape) cohort's client axis is cut into
+        chunks of ``exec_plan.width`` clients (the whole cohort, the chunk
+        size, or 1 on the loop plane), each run through the same cohort
+        program, so the training working set on the device (stacked
+        batches, per-client optimizer states, activations) is O(width). The
+        chunks' outputs stay on the device; each cohort's stack is
+        reassembled with its pad columns dropped, and the N_k/N average and
+        the per-tier aux heads come from ``weighted_average_cohorts``
+        (``repro/fed/dtfl.py:411-457``). At width 1 every leaf of an upload
+        is one row, so a per-row codec (int8) sends one scale per tensor, as
+        the JAX package's loop plane does."""
         merged_trees, merged_ws = [], []
         aux_by_tier: dict[int, list] = {}
         cohorts = cohort_engine.build_cohorts(
-            self.clients, participants, assign, r, self.local_epochs
+            self.clients, participants, assign, r, self.local_epochs,
+            pad_multiple=self.exec_plan.pad_multiple,
         )
         for co in cohorts:
-            batches = {k: torch.from_numpy(v).to(self.device) for k, v in co.batches.items()}
-            merged, aux = self._cohort_program(co.tier)(
-                self.params, self.aux[co.tier], batches, co.mask
-            )
+            prog = self._cohort_program(co.tier)
+            width = self.exec_plan.width(co.mask.shape[1])
+            mchunks, achunks = [], []
+            for sl in cohort_engine.chunk_slices(co.mask.shape[1], width):
+                b, m = cohort_engine.slice_clients(co.batches, co.mask, sl)
+                b = self._batches(b)
+                if self.codec.stateful:
+                    cids_c = co.cids[sl.start:min(sl.stop, co.size)]
+                    efc, efa = self._gather_ef_cids(cids_c, co.tier, width)
+                    merged, upa, efc2, efa2 = prog(
+                        self.params, self.aux[co.tier], b, m, efc, efa)
+                    self._scatter_ef_cids(cids_c, co.tier, efc2, efa2)
+                else:
+                    merged, upa = prog(self.params, self.aux[co.tier], b, m)
+                mchunks.append(merged)
+                achunks.append(upa)
+            n = co.size  # reassemble the cohort stack, drop pad columns
+            cat = lambda *xs: torch.cat(xs)[:n]
+            merged_trees.append(tree_map(cat, *mchunks))
             w = [len(self.clients[k].dataset) for k in co.cids]
-            merged_trees.append(merged)
             merged_ws.append(w)
-            aux_by_tier.setdefault(co.tier, []).append((aux, w))
+            aux_by_tier.setdefault(co.tier, []).append((tree_map(cat, *achunks), w))
         for tier, parts in aux_by_tier.items():
             self.aux[tier] = aggregation.weighted_average_cohorts(
                 [a for a, _ in parts], [w for _, w in parts]
             )
         return aggregation.weighted_average_cohorts(merged_trees, merged_ws)
+
+    # ------------------------------------------------------------------
+    # error-feedback state (stateful codecs), repro/fed/dtfl.py:506-551:
+    # residuals live in host memory per client, shaped like the client's
+    # CURRENT tier halves; a re-tiered client's residual is reset to zeros.
+    # They cross to the device per chunk and back; ``ef_copy_s`` adds up
+    # the host seconds of the whole gather (zeros for new clients, the
+    # stack, the copy to the device) and the whole scatter (the copy to the
+    # host, the per-client clones).
+    # ------------------------------------------------------------------
+    def _zero_ef(self, tier: int):
+        cp, _ = self.adapter.split(self.params, tier)
+        zero = lambda t: tree_map(lambda x: torch.zeros(x.shape, dtype=x.dtype), t)
+        return zero(cp), zero(self.aux[tier])
+
+    def _client_ef(self, cid: int, tier: int):
+        """This client's (client-half, aux) residuals for ``tier``, on the
+        host: zeros if it has none yet or was re-tiered since."""
+        st = self._ef.get(cid)
+        if st is not None and st["tier"] == tier:
+            return st["c"], st["a"]
+        return self._zero_ef(tier)
+
+    def _gather_ef_cids(self, cids, tier: int, width: int):
+        """Stack ``cids``'s residuals along the client axis, zero-padded up
+        to ``width`` clients (a chunk's pad columns), and copy them to the
+        device."""
+        t0 = time.perf_counter()
+        pairs = [self._client_ef(k, tier) for k in cids]
+        pairs += [self._zero_ef(tier)] * (width - len(pairs))
+        to_dev = lambda trees: tree_map(lambda *xs: torch.stack(xs).to(self.device), *trees)
+        out = to_dev([c for c, _ in pairs]), to_dev([a for _, a in pairs])
+        self.ef_copy_s += time.perf_counter() - t0
+        return out
+
+    def _scatter_ef_cids(self, cids, tier: int, efc, efa) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)  # the chunk's training is not the copy's
+        t0 = time.perf_counter()
+        efc, efa = tree_map(torch.Tensor.cpu, efc), tree_map(torch.Tensor.cpu, efa)
+        for i, cid in enumerate(cids):
+            self._ef[cid] = {
+                "tier": tier,
+                "c": tree_map(lambda x: x[i].clone(), efc),
+                "a": tree_map(lambda x: x[i].clone(), efa),
+            }
+        self.ef_copy_s += time.perf_counter() - t0
+
+    # ------------------------------------------------------------------
+    def compact(self, keep) -> None:
+        """Drop per-client state (cached data clients, scheduler history, EF
+        residuals) of clients outside ``keep``, the permanent departures
+        (``repro/fed/dtfl.py:553-566``). The engines never call this."""
+        keep = set(int(k) for k in keep)
+        if hasattr(self.clients, "compact"):
+            self.clients.compact(keep)
+        if hasattr(self.sched, "compact"):
+            self.sched.compact(keep)
+        self._ef = {c: st for c, st in self._ef.items() if c in keep}
 
     # ------------------------------------------------------------------
     def run(
@@ -241,11 +387,26 @@ class DTFLTrainer:
         eval_every: int = 1,
         verbose: bool = False,
         engine: str = "rounds",
+        churn=None,
+        checkpoint_path: str | None = None,
+        resume: dict | None = None,
         on_round=None,
     ) -> list[RoundLog]:
+        """``engine="rounds"`` (the scalar-clock loop) or ``"events"`` (the
+        event-driven sync engine, with an optional ``ChurnModel``).
+        ``on_round(trainer, log)`` is called after each round."""
+        if checkpoint_path is not None or resume is not None:
+            raise NotImplementedError("checkpoints are not yet ported")
+        common = dict(target_acc=target_acc, participation=participation,
+                      sample_size=sample_size, eval_every=eval_every,
+                      verbose=verbose, on_round=on_round)
+        if engine == "events":
+            return round_engine.run_events(self, n_rounds, eval_batch, churn=churn, **common)
+        if engine == "async":
+            raise NotImplementedError("engine 'async' is not yet ported")
         if engine != "rounds":
-            raise NotImplementedError(f"engine {engine!r} is not yet ported")
-        return round_engine.run_rounds(
-            self, n_rounds, eval_batch, target_acc=target_acc,
-            participation=participation, sample_size=sample_size,
-            eval_every=eval_every, verbose=verbose, on_round=on_round)
+            raise ValueError(f"unknown engine {engine!r}")
+        if churn is not None:
+            raise ValueError("churn requires the event-driven engine (engine='events'); "
+                             "the scalar-clock 'rounds' loop cannot express it")
+        return round_engine.run_rounds(self, n_rounds, eval_batch, **common)

@@ -123,7 +123,7 @@ def test_make_codec_specs():
     assert tcodec.make_codec("identity").is_identity
     assert isinstance(tcodec.make_codec("int8"), tcodec.Int8Codec)
     assert isinstance(tcodec.make_codec("bf16"), tcodec.Bf16Codec)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tcodec.make_codec("topk0.05")
-    with pytest.raises(ValueError):
-        tcodec.make_codec("gzip")
+    assert isinstance(tcodec.make_codec("topk0.05"), tcodec.TopKCodec)
+    for bad in ("gzip", "topk0"):
+        with pytest.raises(ValueError):
+            tcodec.make_codec(bad)
