@@ -977,14 +977,15 @@ def phase_small_reference(argv: list[str], label: str,
             fail(f"{label} round {a.round}: clock/assignment/uplink/hosts differ between "
                  f"card and CPU")
     # the bounds of tests/test_torch_dtfl.py, in units of lr * local steps
+    # (one round's a log: an async run's wave 0 and merges are a chain)
     sampled = set().union(*(log.assignment for log in clogs))
-    unit = 1e-3 * 3 * max(ctr.clients[k].n_batches for k in sampled)
+    unit = 1e-3 * len(clogs) * max(ctr.clients[k].n_batches for k in sampled)
     names = _leaf_names(ctr.params)
     diffs = [np.abs(x - y) for x, y in zip(
         tree_leaves(to_numpy_tree(gtr.params)), tree_leaves(to_numpy_tree(ctr.params)))]
     d = np.concatenate([x.ravel() for x in diffs])
     p99 = np.quantile(d, 0.99)
-    print(f"[reference] card vs CPU, reduced {argv[1]}, 3 {label} rounds: logs equal, "
+    print(f"[reference] card vs CPU, reduced {argv[1]}, {len(clogs)} {label} rounds: logs equal, "
           f"parameter |diff| max {d.max():.3g} ({d.max() / unit:.3g} U) median "
           f"{np.median(d):.3g} ({np.median(d) / unit:.3g} U), 99th percentile "
           f"{p99 / unit:.3g} U")
@@ -1220,6 +1221,200 @@ def phase_events_run() -> None:
               f"{log.clock:.4f} s, straggler {log.straggler:.4f} s, tiers "
               f"{sorted(set(log.assignment.values()))}, uplink_bytes {log.uplink_bytes:.0f}, "
               f"clients holding residuals {n_ef}")
+
+
+RESUME_ARGV = ["--arch", "resnet-56", "--full-size", "--clients", "10", "--samples", "2000",
+               "--codec", "topk0.05", "--device", "cuda"]
+ASYNC_ARGV = ["--arch", "resnet-56", "--full-size", "--clients", "10", "--samples", "2000",
+              "--engine", "async", "--n-groups", "3", "--rounds", "3", "--codec", "int8",
+              "--device", "cuda"]
+MICRO_SMALL = ["--arch", "resnet-micro", "--clients", "6", "--samples", "300",
+               "--batch-size", "16"]
+# phase 19's tier-0 bound, the tightest the smoke holds two card runs to
+RESUME_TIGHT_U = 0.001
+
+
+def _keyed(trainer) -> dict:
+    """The trainer's parameters, aux heads and residuals as host arrays,
+    keyed by their envelope paths."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.bridge import to_numpy_tree
+
+    ef = {str(c): {"c": st["c"], "a": st["a"]} for c, st in trainer._ef.items()}
+    return ckpt._flatten(to_numpy_tree({"params": trainer.params,
+                                        "aux": {str(m): a for m, a in trainer.aux.items()},
+                                        "ef": ef}))
+
+
+def _resume_runs(argv: list[str], directory: str):
+    """(a) 4 rounds, (b) 2 rounds writing an envelope, (c) 4 rounds resumed
+    from it; returns (a)'s and (c)'s logs and trainers, and the envelope."""
+    import os
+
+    from repro_torch.launch import train
+
+    path = os.path.join(directory, "state.npz")
+    runs = []
+    for extra in (["--rounds", "4"], ["--rounds", "2", "--out-ckpt", path, "--save-every", "2"],
+                  ["--rounds", "4", "--resume", path]):
+        got = {}
+        logs = train.main(argv + extra, on_round=lambda tr, log: got.update(trainer=tr))
+        runs.append((logs, got["trainer"]))
+    (alogs, atr), (blogs, _), (clogs, ctr) = runs
+    if [log.round for log in blogs] != [0, 1] or [log.round for log in clogs] != [2, 3]:
+        fail(f"resume: rounds {[l.round for l in blogs]} then {[l.round for l in clogs]}")
+    return alogs, atr, clogs, ctr, path
+
+
+def phase_resume_run() -> None:
+    """Save at round 2, resume, and hold rounds 2-3 to the uninterrupted run."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.fed import engine
+
+    timed = {"save": [], "load": []}
+    save, resume = engine.save_train_state, engine.apply_resume
+
+    def timed_save(*a, **kw):
+        t0 = time.perf_counter()
+        save(*a, **kw)
+        timed["save"].append(time.perf_counter() - t0)
+
+    def timed_resume(*a, **kw):
+        t0 = time.perf_counter()
+        out = resume(*a, **kw)
+        timed["load"].append(time.perf_counter() - t0)
+        return out
+
+    engine.save_train_state, engine.apply_resume = timed_save, timed_resume
+    directory = tempfile.mkdtemp(prefix=".smoke_resume_", dir=ROOT)
+    try:
+        alogs, atr, clogs, ctr, path = _resume_runs(RESUME_ARGV, directory)
+        t0 = time.perf_counter()
+        env = ckpt.load(path)
+        read_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+    finally:
+        engine.save_train_state, engine.apply_resume = save, resume
+        shutil.rmtree(directory, ignore_errors=True)
+    holders = sorted(int(c) for c in env["trainer"].get("ef", {}))
+    print(f"[resume] envelope {size} bytes, {len(holders)} clients' residuals in it "
+          f"({holders}); save {timed['save'][0]:.4f} s host (state to the host + npz "
+          f"write), load {timed['load'][0]:.4f} s host (the trainer's state onto the card; "
+          f"reading the file {read_s:.4f} s)")
+    for a, c in zip(alogs[2:], clogs):
+        if (a.clock, a.assignment, a.uplink_bytes, a.acc, a.straggler) != \
+                (c.clock, c.assignment, c.uplink_bytes, c.acc, c.straggler):
+            fail(f"resume round {c.round}: clock/tiers/uplink/acc differ from the "
+                 f"uninterrupted run")
+        print(f"[resume] round {c.round}: wall {c.wall_s:.3f} s (uninterrupted "
+              f"{a.wall_s:.3f} s), sim clock {c.clock:.4f} s, tiers "
+              f"{sorted(set(c.assignment.values()))}, uplink_bytes {c.uplink_bytes:.0f}, "
+              f"acc {c.acc:.4f}: equal")
+    want, got = _keyed(atr), _keyed(ctr)
+    if sorted(want) != sorted(got) or sorted(atr._ef) != sorted(ctr._ef):
+        fail("resume: the resumed run holds other leaves or residuals")
+    unit = 1e-3 * 4 * max(atr.clients[k].n_batches for k in alogs[-1].assignment)
+    diffs = {k: float(np.abs(want[k].astype(np.float64) - got[k]).max()) if want[k].size
+             else 0.0 for k in want}
+    worst = max(diffs, key=diffs.get)
+    n_unequal = sum(not np.array_equal(want[k], got[k]) for k in want)
+    print(f"[resume] parameters, aux heads and residuals against the uninterrupted run: "
+          + ("bit-equal" if not n_unequal else
+             f"{n_unequal} of {len(want)} leaves not bit-equal, largest difference "
+             f"{diffs[worst]:.3g} ({diffs[worst] / unit:.3g} U) in {worst}"))
+    if diffs[worst] > RESUME_TIGHT_U * unit:
+        fail(f"resume: {worst} apart by {diffs[worst] / unit} U, bound {RESUME_TIGHT_U} U")
+
+
+def phase_async_run() -> None:
+    """The async engine at full width with int8 uploads (K1 on every wave)."""
+    import torch
+
+    from repro_torch.kernels import quantize
+    from repro_torch.launch import train
+
+    merges, shapes, rec = [], {}, {"groups": None, "members": []}
+
+    def on_round(trainer, log):
+        if not shapes:
+            shapes.update(_check_trees_finite(trainer))
+            groups, train_group = trainer.async_groups, trainer.train_group
+
+            def async_groups(cids, n):
+                rec["groups"] = groups(cids, n)
+                return rec["groups"]
+
+            def train(r, plan, trained):
+                rec["members"].append(list(trained))
+                return train_group(r, plan, trained)
+
+            trainer.async_groups, trainer.train_group = async_groups, train
+        else:
+            _check_trees_finite(trainer, shapes)
+        merges.append((log, quantize.LAUNCHES))
+
+    torch.cuda.reset_peak_memory_stats()
+    quantize.LAUNCHES = 0
+    logs = train.main(ASYNC_ARGV, on_round=on_round)
+    peak = torch.cuda.max_memory_allocated()
+    if len(logs) != 10 or len(rec["members"]) != 9:
+        fail(f"async run: expected wave 0 and 9 merges, got {len(logs)} logs")
+    clocks = [log.clock for log in logs]
+    if clocks != sorted(clocks):
+        fail("async run: the merge clocks go backwards")
+    print(f"[async] speed groups {rec['groups']}")
+    before = 0
+    for i, (log, count) in enumerate(merges):
+        if count <= before:
+            fail(f"async run log {log.round} launched no int8_roundtrip kernel")
+        what = ("wave 0 (all clients)" if i == 0 else
+                f"merge {log.round}, group "
+                f"{next(g for g, m in enumerate(rec['groups']) if rec['members'][i - 1][0] in m)}"
+                f" ({len(rec['members'][i - 1])} clients)")
+        print(f"[async] {what}: sim clock {log.clock:.4f} s, wave {log.straggler:.4f} s, "
+              f"wall {log.wall_s:.3f} s, tiers {sorted(set(log.assignment.values()))}, "
+              f"acc {log.acc:.4f}, int8_roundtrip launches {count - before}")
+        before = count
+    print(f"[async] peak device memory {peak / 2**30:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated), int8_roundtrip launches {before}")
+
+
+def phase_resume_reference() -> None:
+    """The resume of phase 20 at ``resnet-micro`` with top-k, on the card
+    and on the CPU: the resumed rounds' logs equal, parameters close."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        directory = tempfile.mkdtemp(prefix=".smoke_resume_", dir=ROOT)
+        try:
+            runs[device] = _resume_runs(MICRO_SMALL + ["--codec", "topk0.05", "--device",
+                                                       device], directory)
+        finally:
+            shutil.rmtree(directory, ignore_errors=True)
+    (_, _, glogs, gtr, _), (_, _, clogs, ctr, _) = runs["cuda"], runs["cpu"]
+    for a, b in zip(glogs, clogs):
+        if (a.clock, a.assignment, a.uplink_bytes) != (b.clock, b.assignment, b.uplink_bytes):
+            fail(f"resume reference round {a.round}: clock/assignment/uplink differ between "
+                 "card and CPU")
+    unit = 1e-3 * 4 * max(ctr.clients[k].n_batches for k in clogs[-1].assignment)
+    g, c = _keyed(gtr), _keyed(ctr)
+    d = np.concatenate([np.abs(g[k] - c[k]).ravel() for k in sorted(c) if k.startswith("d:params")])
+    stats = (d.max() / unit, np.quantile(d, 0.99) / unit, np.median(d) / unit)
+    print(f"[reference] card vs CPU, resnet-micro, top-k, rounds 2-3 resumed from round 2: "
+          f"logs equal, parameters {stats[0]:.3g} / {stats[1]:.3g} / {stats[2]:.3g} U (max, "
+          f"99th percentile, median)")
+    if any(x > b for x, b in zip(stats, (0.5, 0.1, 0.01))):
+        fail(f"resume reference: card and CPU parameters apart by {stats} U")
 
 
 def _u_stats(pairs, unit: float) -> tuple[float, float, float]:
@@ -1949,6 +2144,12 @@ def main() -> None:
     _phase("chunked vs cohort, tier 0", 1, phase_chunked_vs_cohort,
            RESNET_SMALL + ["--codec", "topk0.05", "--scheduler", "0"],
            "reduced resnet-56, top-k, every client on tier 0", 0.001)
+    _phase("resume run", 7, phase_resume_run)
+    _phase("async run", 7, phase_async_run)
+    _phase("resume reference", 1, phase_resume_reference)
+    _phase("async reference", 1, phase_small_reference,
+           MICRO_SMALL + ["--engine", "async", "--n-groups", "3", "--rounds", "3", "--codec",
+                          "int8"], "async int8")
     entry["launches"] = k1_launches
     _phase("K1 device time", 1, phase_k1_device_time, entry)
     k2_fwd, k2_bwd = _phase("K2 times", 1, phase_k2_times, *k2_err)

@@ -1,7 +1,9 @@
-"""FedAvg aggregation across cohorts (pair: ``repro/core/aggregation.py:46``).
+"""FedAvg aggregation (pair: ``repro/core/aggregation.py``).
 
-Each cohort's merged trees carry a leading client axis; the average weights
-client k by ``N_k / N`` over the union of all cohorts (Eq. 1).
+``weighted_average_cohorts`` (``:46``): each cohort's merged trees carry a
+leading client axis; the average weights client k by ``N_k / N`` over the
+union of all cohorts (Eq. 1). ``weighted_average`` (``:15``): the async
+engine's merge of whole trees, one per speed group.
 """
 from __future__ import annotations
 
@@ -10,6 +12,22 @@ import torch
 from repro_torch.tree import tree_leaves, tree_map
 
 Params = dict
+
+
+def weighted_average(trees: list[Params], weights: list[float]) -> Params:
+    """``sum_i w_i tree_i`` with the weights normalised to sum 1, as
+    ``repro/core/aggregation.py:15-25``: an fp32 ``tensordot`` of the
+    weights over the stacked leaves, cast back to the first tree's dtype.
+    The result is new tensors; no input is written."""
+    device = tree_leaves(trees[0])[0].device
+    w = torch.as_tensor(weights, dtype=torch.float32, device=device)
+    w = w / w.sum()
+
+    def avg(*leaves):
+        stacked = torch.stack([x.float() for x in leaves])
+        return torch.tensordot(w, stacked, dims=1).to(leaves[0].dtype)
+
+    return tree_map(avg, *trees)
 
 
 def weighted_average_cohorts(stacked_trees: list[Params], weights: list) -> Params:

@@ -180,34 +180,17 @@ class TopKCodec(Codec):
         return FP32_BYTES * np.asarray(n_elems, float)   # dense download
 
 
-def _parse_topk(s: str) -> "float | None":
-    """``topk<frac>`` / ``topk:<frac>`` with frac in (0, 1], as
-    ``repro/registry.py:281-288`` parses it; None if ``s`` is not one."""
-    try:
-        frac = float(s[4:].lstrip(":"))
-    except ValueError:
-        return None
-    return frac if 0.0 < frac <= 1.0 else None
-
-
 def make_codec(spec: "Codec | str | None") -> Codec:
     """Resolve a codec spec: None | 'identity' | 'bf16' | 'int8' |
-    'topk<frac>' (e.g. ``topk0.05``) | a Codec."""
+    'topk<frac>' (e.g. ``topk0.05``) | any codec registered with
+    ``repro_torch.registry.register_codec`` | a Codec instance."""
     if spec is None:
         return IdentityCodec()
     if isinstance(spec, Codec):
         return spec
-    s = str(spec).strip().lower()
-    if s in ("identity", "none", ""):
-        return IdentityCodec()
-    if s == "bf16":
-        return Bf16Codec()
-    if s == "int8":
-        return Int8Codec()
-    if s.startswith("topk") and _parse_topk(s) is not None:
-        return TopKCodec(_parse_topk(s))
-    raise ValueError(f"unknown codec {spec!r}; choose identity | bf16 | int8 | "
-                     "topk<frac> (e.g. topk0.05)")
+    from repro_torch import registry
+
+    return registry.codecs.build(str(spec).strip().lower())
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Simulated heterogeneous client population (paper Sec. 4.1).
 
 Verbatim copy of ``repro/fed/client.py:1``: ``SimClient``, ``HeteroEnv``
-without its checkpoint ``save_state``/``load_state``, and ``ChurnModel``
-(``:89``), the event engine's dropout, arrival and mid-round switches.
+with its checkpoint ``save_state``/``load_state`` (``:70-87``), and
+``ChurnModel`` (``:89``), the event engine's dropout, arrival and mid-round
+switches.
 
 Each client owns a data partition and a resource profile; the environment
 re-assigns profiles for a fraction of clients every ``switch_every`` rounds
@@ -16,6 +17,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from repro_torch import checkpoint as ckpt
 from repro_torch.core.timemodel import PAPER_PROFILES, ResourceProfile
 from repro_torch.data.pipeline import ClientDataset
 
@@ -70,6 +72,20 @@ class HeteroEnv:
 
     def profile(self, cid: int) -> ResourceProfile:
         return self.profiles[self.assignment[cid]]
+
+    # ------------------------------------------------------------------
+    # resumable-training state (profile assignment + the switch rng stream)
+    # ------------------------------------------------------------------
+    def save_state(self) -> dict:
+        switched = np.array(sorted(self._switched_rounds), dtype=np.int64)
+        return {"assignment": self.assignment.copy(),
+                "rng": ckpt.pack_rng(self.rng),
+                "switched": switched}
+
+    def load_state(self, state: dict) -> None:
+        self.assignment = np.asarray(state["assignment"]).copy()
+        self.rng = ckpt.unpack_rng(state["rng"])
+        self._switched_rounds = {int(r) for r in np.asarray(state["switched"]).reshape(-1)}
 
 
 class ChurnModel:

@@ -20,9 +20,11 @@ how many clients one cohort program takes: ``cohort`` (the whole cohort),
 ``chunked`` (``chunk_size`` clients at a time) or ``loop`` (one client at a
 time); all three run ``DTFLTrainer._train_chunked``. ``topology="pairing"``
 lets fast clients host slow clients' far halves in the time model
-(``core/topology.py``); training is the same. The rounds and events
-engines run it (``fed/engine.py``). The sharded plane, checkpoints and the
-async engine are not yet ported.
+(``core/topology.py``); training is the same. The rounds, events and
+async engines run it (``fed/engine.py``); ``save_state``/``load_state``
+carry the run through a checkpoint envelope (``checkpoint/``). The
+scheduler and codec names resolve through ``repro_torch.registry``. The
+sharded plane is not yet ported.
 """
 from __future__ import annotations
 
@@ -31,12 +33,12 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import checkpoint as ckpt
+from repro_torch import registry, resolve_device
 from repro_torch.core import aggregation, timemodel
 from repro_torch.core import codec as codec_lib
 from repro_torch.core import topology as topology_lib
-from repro_torch.core.scheduler import (DynamicTierScheduler, PairingScheduler,
-                                        StaticScheduler, TierProfile)
+from repro_torch.core.scheduler import EMA, DynamicTierScheduler, StaticScheduler, TierProfile
 from repro_torch.fed import cohort as cohort_engine
 from repro_torch.fed import engine as round_engine
 from repro_torch.fed.adapter import DTFLStepState
@@ -45,27 +47,10 @@ from repro_torch.fed.engine import RoundLog, RoundPlan
 from repro_torch.fed.execplan import ExecPlan
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
-TOPOLOGIES = ("server", "pairing")
-
-
-def make_scheduler(spec: "str | int", profile: TierProfile, n_clients: int):
-    """``"dynamic"`` -> Algorithm 1; ``"pairing"`` / ``"pairing:hungarian"``
-    / ``"pairing:greedy"`` -> the pairing scheduler
-    (``repro/registry.py:233-245``); an integer (or its string) -> that
-    fixed 0-based tier for every client."""
-    s = str(spec).strip().lower()
-    if s == "dynamic":
-        return DynamicTierScheduler(profile, n_clients)
-    if s in ("pairing", "pairing:hungarian", "pairing:greedy"):
-        method = s.split(":", 1)[1] if ":" in s else "hungarian"
-        return PairingScheduler(profile, n_clients, method=method)
-    try:
-        tier = int(s)
-    except ValueError:
-        raise NotImplementedError(f"scheduler {spec!r} is not yet ported") from None
-    if tier < 0:
-        raise ValueError(f"static tier must be >= 0, got {tier}")
-    return StaticScheduler(tier, n_clients)
+def _host(a) -> np.ndarray:
+    """A leaf of a loaded state as a host array: numpy as is, a tensor
+    copied off its device."""
+    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
 
 
 def _value_and_grad(loss_fn, tree):
@@ -125,12 +110,15 @@ class DTFLTrainer:
             server_flops=server_flops,
             wires=self.wires,
         )
-        # topology and scheduler checks of repro/fed/dtfl.py:90-106
-        if topology not in TOPOLOGIES:
-            raise ValueError(f"unknown topology {topology!r}; choose from {TOPOLOGIES}")
+        # scheduler specs resolve through the component registry, as
+        # repro/fed/dtfl.py:86-106 resolves them
+        if topology not in registry.topologies:
+            registry.topologies.validate(topology)   # raises with choices
         if topology == "pairing" and scheduler == "dynamic":
             scheduler = "pairing"
-        self.sched = make_scheduler(scheduler, profile, len(clients))
+        self.sched = registry.schedulers.build(
+            scheduler, profile=profile, n_clients=len(clients),
+            n_tiers=adapter.n_tiers)
         provides_hosts = getattr(self.sched, "provides_hosts", False)
         if topology == "pairing" and not provides_hosts:
             raise ValueError(
@@ -182,7 +170,8 @@ class DTFLTrainer:
         over the client axis, upload wire, merge. Returns the merged trees
         and the uploaded aux heads, both with the client axis; a stateful
         codec takes the cohort's residuals ``efc``, ``efa`` (client axis) and
-        also returns the new ones (``repro/fed/dtfl.py:174-189``)."""
+        also returns the new ones (``repro/fed/dtfl.py:174-189``). Eager
+        PyTorch compiles nothing, so the closure is built per call."""
         ad, opt, codec = self.adapter, self.opt, self.codec
         step = self._raw_step(tier)
 
@@ -261,6 +250,29 @@ class DTFLTrainer:
         self.sched.observe_cohort(
             ks, tiers, obs_times, plan.obs["nu"][sel], plan.obs["nb"][sel]
         )
+
+    def train_group(self, r: int, plan: RoundPlan, trained: list[int]):
+        """Async hook (``repro/fed/dtfl.py:307-312``): train ``trained`` as
+        ``execute_round`` does but return the aggregated tree and the
+        group's sample count instead of committing the tree, so the async
+        merger can staleness-weight it. The per-tier aux heads and the EF
+        residuals are updated as in a round."""
+        with torch.no_grad():
+            tree = self._train_chunked(r, trained, plan.assign)
+        return tree, float(sum(len(self.clients[k].dataset) for k in trained))
+
+    def async_groups(self, cids: list[int], n_groups: int) -> list[list[int]]:
+        """Speed groups from the scheduler's estimates, never ground truth
+        (``repro/fed/dtfl.py:325-335``): the min-over-allowed-tiers T_hat,
+        ascending, fast group first. A static scheduler has no estimates;
+        its groups are contiguous slices."""
+        if isinstance(self.sched, StaticScheduler):
+            order = list(cids)
+        else:
+            sel = np.array(self.sched.allowed)
+            est = self.sched.estimate_matrix(list(cids))[:, sel].min(axis=1)
+            order = [cids[i] for i in np.argsort(est, kind="stable")]
+        return round_engine.split_speed_groups(order, n_groups)
 
     def train_round(self, r: int, participants: list[int]) -> tuple[float, dict[int, int]]:
         """Scalar-clock round: plan -> execute(all) -> observe(all)."""
@@ -376,6 +388,105 @@ class DTFLTrainer:
         self._ef = {c: st for c, st in self._ef.items() if c in keep}
 
     # ------------------------------------------------------------------
+    # checkpointing (repro/fed/dtfl.py:572-670): global params, per-tier aux
+    # heads, the scheduler's touched clients (and pairing's hosts), the env
+    # profile state and the EF residuals. No "key": the JAX package draws
+    # from its key only at init (repro/fed/dtfl.py:71-72, :110), as the
+    # port draws from its torch generator, so nothing after init depends on
+    # it; an envelope's "key" is ignored on load, and the JAX package loads
+    # an envelope without one (:623-624).
+    # ------------------------------------------------------------------
+    def save_state(self) -> dict:
+        state = {"params": self.params,
+                 "aux": {str(k): v for k, v in self.aux.items()},
+                 "env": self.env.save_state()}
+        if isinstance(self.sched, DynamicTierScheduler):
+            # sparse: only touched clients ride the envelope
+            items = self.sched.clients.touched_items()
+            ema_t, ema_v = [], []
+            for cid, cl in items:
+                for tier, ema in cl.ema.items():
+                    ema_t.append([cid, tier])
+                    ema_v.append(ema.value)
+            state["sched"] = {
+                "cids": np.array([c for c, _ in items], dtype=np.int64),
+                "tiers": np.array([cl.tier for _, cl in items], dtype=np.int64),
+                "nu": np.array([cl.nu for _, cl in items], dtype=np.float64),
+                "nb": np.array([cl.n_batches for _, cl in items], dtype=np.int64),
+                "obs": np.array(
+                    [-1 if cl.last_obs_tier is None else cl.last_obs_tier
+                     for _, cl in items], dtype=np.int64),
+                "ema_keys": np.array(ema_t or [[0, 0]][:0]).reshape(-1, 2),
+                "ema_vals": np.array(ema_v),
+            }
+            if getattr(self.sched, "provides_hosts", False):
+                hosts = self.sched.last_hosts
+                state["sched"]["host_cids"] = np.array(sorted(hosts), dtype=np.int64)
+                state["sched"]["host_of"] = np.array(
+                    [hosts[c] for c in sorted(hosts)], dtype=np.int64)
+        if self.codec.stateful:
+            state["ef"] = {
+                str(cid): {"tier": np.int64(st["tier"]), "c": st["c"], "a": st["a"]}
+                for cid, st in self._ef.items()
+            }
+        return state
+
+    def load_state(self, state: dict) -> None:
+        """Restore ``save_state``'s dict (numpy or tensor leaves, from either
+        package). Parameters and aux heads become new tensors on the
+        trainer's device, residuals new host tensors, each laid out as the
+        live tree; no live tensor is written."""
+        fresh = lambda like, tree, device: tree_map(
+            lambda _, a: torch.tensor(_host(a), device=device), like, tree)
+        self.params = fresh(self.params, state["params"], self.device)
+        self.aux = {int(k): fresh(self.aux[int(k)], v, self.device)
+                    for k, v in state["aux"].items()}
+        if "env" in state:
+            self.env.load_state(state["env"])
+        if "sched" in state and isinstance(self.sched, DynamicTierScheduler):
+            sc = state["sched"]
+            if "cids" in sc:
+                # sparse envelope: reset to all-default, then replay the
+                # touched clients
+                self.sched.clients.compact([])
+                cids = [int(c) for c in np.asarray(sc["cids"]).reshape(-1)]
+            else:
+                # dense envelope (one entry per registered client)
+                cids = list(range(len(np.asarray(sc["tiers"]).reshape(-1))))
+            self.sched._rows.clear()
+            for i, cid in enumerate(cids):
+                cl = self.sched.clients[cid]
+                cl.tier = int(sc["tiers"][i])
+                cl.nu = float(sc["nu"][i])
+                cl.n_batches = int(sc["nb"][i])
+                obs = int(sc["obs"][i])
+                cl.last_obs_tier = None if obs < 0 else obs
+            for (cid, tier), v in zip(sc["ema_keys"], sc["ema_vals"]):
+                e = EMA()
+                e.value = float(v)
+                self.sched.clients[int(cid)].ema[int(tier)] = e
+            if "host_cids" in sc and getattr(self.sched, "provides_hosts", False):
+                self.sched.last_hosts = {
+                    int(c): int(h)
+                    for c, h in zip(np.asarray(sc["host_cids"]).reshape(-1),
+                                    np.asarray(sc["host_of"]).reshape(-1))}
+        if "ef" in state:
+            self._ef = {}
+            for cid, st in state["ef"].items():
+                tier = int(st["tier"])
+                zc, za = self._zero_ef(tier)
+                self._ef[int(cid)] = {"tier": tier, "c": fresh(zc, st["c"], "cpu"),
+                                      "a": fresh(za, st["a"], "cpu")}
+
+    def save(self, path: str) -> None:
+        ckpt.save(path, self.save_state())
+
+    def restore(self, path: str) -> None:
+        """Load trainer state from ``path``: a bare ``save()`` state or a
+        ``fed.engine.save_train_state`` resume envelope (unwrapped)."""
+        round_engine.restore_trainer(self, path)
+
+    # ------------------------------------------------------------------
     def run(
         self,
         n_rounds: int,
@@ -386,27 +497,39 @@ class DTFLTrainer:
         sample_size: int | None = None,
         eval_every: int = 1,
         verbose: bool = False,
+        checkpoint_path: str | None = None,
+        checkpoint_every: int = 10,
         engine: str = "rounds",
         churn=None,
-        checkpoint_path: str | None = None,
+        n_groups: int = 3,
         resume: dict | None = None,
         on_round=None,
     ) -> list[RoundLog]:
-        """``engine="rounds"`` (the scalar-clock loop) or ``"events"`` (the
-        event-driven sync engine, with an optional ``ChurnModel``).
-        ``on_round(trainer, log)`` is called after each round."""
-        if checkpoint_path is not None or resume is not None:
-            raise NotImplementedError("checkpoints are not yet ported")
+        """``engine="rounds"`` (the scalar-clock loop), ``"events"`` (the
+        event-driven sync engine, with an optional ``ChurnModel``) or
+        ``"async"`` (``n_groups`` speed groups, staleness-weighted merges).
+        ``checkpoint_path`` gets a resume envelope every
+        ``checkpoint_every`` rounds and at the end; ``resume`` is a loaded
+        envelope to continue. ``on_round(trainer, log)`` is called after
+        each round."""
         common = dict(target_acc=target_acc, participation=participation,
-                      sample_size=sample_size, eval_every=eval_every,
-                      verbose=verbose, on_round=on_round)
+                      eval_every=eval_every, verbose=verbose,
+                      checkpoint_path=checkpoint_path,
+                      checkpoint_every=checkpoint_every, resume=resume,
+                      on_round=on_round)
         if engine == "events":
-            return round_engine.run_events(self, n_rounds, eval_batch, churn=churn, **common)
+            return round_engine.run_events(self, n_rounds, eval_batch, churn=churn,
+                                           sample_size=sample_size, **common)
         if engine == "async":
-            raise NotImplementedError("engine 'async' is not yet ported")
+            if sample_size is not None:
+                raise ValueError("sample_size is a rounds/events knob; the "
+                                 "async engine groups the full population")
+            return round_engine.run_async(self, n_rounds, eval_batch, churn=churn,
+                                          n_groups=n_groups, **common)
         if engine != "rounds":
             raise ValueError(f"unknown engine {engine!r}")
         if churn is not None:
             raise ValueError("churn requires the event-driven engine (engine='events'); "
                              "the scalar-clock 'rounds' loop cannot express it")
-        return round_engine.run_rounds(self, n_rounds, eval_batch, **common)
+        return round_engine.run_rounds(self, n_rounds, eval_batch,
+                                       sample_size=sample_size, **common)

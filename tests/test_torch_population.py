@@ -157,12 +157,15 @@ def test_three_rounds_match_jax(case):
     tt.params = from_numpy_tree(jax.tree.map(np.asarray, jt.params), "cpu")
     tt.aux = {m: from_numpy_tree(jax.tree.map(np.asarray, a), "cpu") for m, a in jt.aux.items()}
     jlogs = fed.run()
-    churn, drops = ttrain.make_churn(args), []
+    from repro_torch.api import _churn_model
+
+    spec = ttrain.spec_from_args(args)
+    churn, drops = _churn_model(spec), []
     if churn is not None:
         mark = churn.mark_offline
         churn.mark_offline = lambda cid: (drops.append(cid), mark(cid))
-    tlogs = tt.run(3, eval_batch, sample_size=args.sample_size, engine=args.engine,
-                   churn=churn)
+    tlogs = tt.run(3, eval_batch, sample_size=args.sample_size,
+                   engine=spec.resolved_engine, churn=churn)
     assert len(tlogs) == len(jlogs) == 3
     for a, b in zip(jlogs, tlogs):
         assert (b.clock, b.assignment, b.uplink_bytes, b.straggler) == \

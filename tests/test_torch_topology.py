@@ -126,14 +126,17 @@ def test_pairing_scheduler_exact(method):
 
 
 def test_pairing_specs():
-    from repro_torch.fed.dtfl import make_scheduler
+    """The pairing specs build through the registry, as the trainer builds
+    its scheduler."""
+    from repro_torch import registry
 
     tprof = tsched.TierProfile.from_cost_table(
         ttime.resnet_tier_costs(RESNET56, 32), ref_flops=ttime.UNIT_FLOPS,
         server_flops=ttime.SERVER_FLOPS)
     for spec, method in (("pairing", "hungarian"), ("pairing:hungarian", "hungarian"),
                          ("pairing:greedy", "greedy")):
-        s = make_scheduler(spec, tprof, 4)
+        s = registry.schedulers.build(spec, profile=tprof, n_clients=4,
+                                      n_tiers=tprof.n_tiers)
         assert isinstance(s, tsched.PairingScheduler) and s.method == method
         assert s.provides_hosts
 
