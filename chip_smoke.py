@@ -123,6 +123,30 @@ Phases (any failure exits non-zero and prints no result line):
      card, with top-k, once with tier changes and once with every client on
      tier 0: logs must be equal; the largest difference of parameters, aux
      heads and residuals is printed, and whether they are bit-equal.
+ 20. resume run: full-width ResNet-56, 10 clients, top-k: 4 rounds, then 2
+     with ``--out-ckpt`` and 4 with ``--resume``; rounds 2-3 held to the
+     uninterrupted run; the envelope's bytes, save and load seconds.
+ 21. async run: 10 clients, ``--engine async --n-groups 3 --codec int8``,
+     3 waves a group: per merge clock, group, wall and K1 launches; then
+     the resume and the async runs at ``resnet-micro`` on the card and on
+     the CPU, as phase 6.
+ 22. baselines run: the seven full-model baselines through the same entry
+     point (``--method``) on full-width ResNet-56, 10 clients, 2,000
+     samples, batch 32, 3 rounds: fedavg, fedyogi, tifl and drop30 with
+     ``--codec int8``, splitfed and fedgkt with the identity codec, fedat
+     with ``--engine async --n-groups 3 --codec int8`` (wave 0 and 9
+     merges). K1 and K3 counts are zeroed before each run; per round or
+     merge wall, simulated clock, trained clients, uplink bytes (which must
+     equal ``wire_sizes``' full-model upload times the clients the log's
+     plan trains) and K1 and K3 launches: every int8 round and merge must
+     launch K1, every round and merge K3 forward and backward. Every
+     parameter (FedGKT: also its edge model, server model and aux head)
+     must be finite and shaped as a fresh init; each run's peak reserved
+     memory; then FedAvg's simulated clock over DTFL's (phase 4's),
+     printed only.
+ 23. the reduced ResNet-56 on the card and on the CPU, as phase 6, for
+     fedavg with int8, tifl, fedgkt and fedat (async, int8); each run's
+     trained clients must be equal too.
 Every phase first waits, up to CARD_WAIT_S seconds over the whole run, until
 the card has the device memory it needs free: another process on the same
 card (a second run started beside this one) may hold its memory until it
@@ -141,6 +165,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from functools import partial
 from itertools import product
 from pathlib import Path
@@ -744,7 +769,7 @@ def _check_trees_finite(trainer, shapes=None) -> dict:
     return got
 
 
-def phase_main_path() -> int:
+def phase_main_path() -> tuple[int, float]:
     import torch
 
     from repro_torch.kernels import quantize
@@ -782,7 +807,7 @@ def phase_main_path() -> int:
         before = count
     print(f"[main] peak device memory {peak / 2**30:.3f} GiB "
           f"(torch.cuda.max_memory_allocated), int8_roundtrip launches {launches}")
-    return launches
+    return launches, logs[-1].clock
 
 
 def phase_dcor_run() -> tuple[int, int]:
@@ -964,11 +989,12 @@ def phase_small_reference(argv: list[str], label: str,
     from repro_torch.launch import train
     from repro_torch.tree import tree_leaves
 
-    runs = {}
+    runs, plans = {}, {}
     for device in ("cuda", "cpu"):
         got = {}
-        logs = train.main(argv + ["--device", device],
-                          on_round=lambda tr, log: got.update(trainer=tr))
+        with _baseline_plans() as plans[device]:
+            logs = train.main(argv + ["--device", device],
+                              on_round=lambda tr, log: got.update(trainer=tr))
         runs[device] = (logs, got["trainer"])
     (glogs, gtr), (clogs, ctr) = runs["cuda"], runs["cpu"]
     for a, b in zip(glogs, clogs):
@@ -976,9 +1002,12 @@ def phase_small_reference(argv: list[str], label: str,
                 != (b.clock, b.assignment, b.uplink_bytes, b.hosts)):
             fail(f"{label} round {a.round}: clock/assignment/uplink/hosts differ between "
                  f"card and CPU")
+    # a baseline's selections (the rounds engine logs none)
+    if plans["cuda"] != plans["cpu"]:
+        fail(f"{label}: the trained clients differ between card and CPU")
     # the bounds of tests/test_torch_dtfl.py, in units of lr * local steps
     # (one round's a log: an async run's wave 0 and merges are a chain)
-    sampled = set().union(*(log.assignment for log in clogs))
+    sampled = set().union(*(log.assignment for log in clogs)) or range(len(ctr.clients))
     unit = 1e-3 * len(clogs) * max(ctr.clients[k].n_batches for k in sampled)
     names = _leaf_names(ctr.params)
     diffs = [np.abs(x - y) for x, y in zip(
@@ -1383,6 +1412,125 @@ def phase_async_run() -> None:
         before = count
     print(f"[async] peak device memory {peak / 2**30:.3f} GiB "
           f"(torch.cuda.max_memory_allocated), int8_roundtrip launches {before}")
+
+
+BASELINE_ARGV = ["--arch", "resnet-56", "--full-size", "--clients", "10", "--samples", "2000",
+                 "--batch-size", "32", "--rounds", "3", "--lr", "1e-3", "--device", "cuda"]
+BASELINE_RUNS = {
+    "fedavg": ["--codec", "int8"], "fedyogi": ["--codec", "int8"],
+    "tifl": ["--codec", "int8"], "drop30": ["--codec", "int8"],
+    "splitfed": [], "fedgkt": [],
+    "fedat": ["--engine", "async", "--n-groups", "3", "--codec", "int8"],
+}
+
+
+@contextmanager
+def _baseline_plans():
+    """Record every baseline plan's trained clients, in order (the rounds
+    engine logs a baseline's round without them), and with them the
+    trained list whose bytes the next log reports."""
+    from repro_torch.fed.base import BaseTrainer
+
+    real = BaseTrainer.plan_round
+    planned: list[list[int]] = []
+
+    def plan_round(self, r, participants):
+        plan = real(self, r, participants)
+        planned.append(list(plan.trained))
+        return plan
+
+    BaseTrainer.plan_round = plan_round
+    try:
+        yield planned
+    finally:
+        BaseTrainer.plan_round = real
+
+
+def phase_baselines_run(dtfl_clock: float) -> None:
+    """The seven full-model baselines at full width through the CLI, K1 on
+    every int8 wire, K3 on every loss; FedAvg's simulated clock over DTFL's
+    (the main path's) printed last."""
+    import gc
+
+    import torch
+
+    from repro_torch.core.codec import wire_sizes
+    from repro_torch.kernels import fused_xent, quantize
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+
+    clocks = {}
+    for method, extra in BASELINE_RUNS.items():
+        rows, got, members = [], {}, []
+
+        def on_round(trainer, log):
+            got["trainer"] = trainer
+            rows.append((log, quantize.LAUNCHES, dict(fused_xent.LAUNCHES),
+                         list(planned[-1]), list(members[-1]) if members else None))
+
+        # this run's own peak: the blocks the previous run cached are released
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with _baseline_plans() as planned:
+            if method == "fedat":      # the merged group's members, a merge each
+                from repro_torch.fed.base import BaseTrainer
+
+                real = BaseTrainer.train_group
+                BaseTrainer.train_group = lambda self, r, plan, trained: (
+                    members.append(list(trained)) or real(self, r, plan, trained))
+            quantize.LAUNCHES = 0
+            fused_xent.LAUNCHES.update(forward=0, backward=0)
+            try:
+                logs = train.main(BASELINE_ARGV + ["--method", method] + extra,
+                                  on_round=on_round)
+            finally:
+                if method == "fedat":
+                    BaseTrainer.train_group = real
+        peak = torch.cuda.max_memory_reserved(), torch.cuda.max_memory_allocated()
+        tr = got["trainer"]
+        want_logs = 1 + 3 * 3 if method == "fedat" else 3
+        if len(logs) != want_logs or len(rows) != want_logs:
+            fail(f"{method} run: expected {want_logs} logs, got {len(logs)}")
+        full_up = wire_sizes(tr.costs, tr.codec.name).full_up
+        before, xent = 0, {"forward": 0, "backward": 0}
+        for log, k1, k3, last_plan, group in rows:
+            k3_new = {k: k3[k] - xent[k] for k in k3}
+            if log.uplink_bytes != full_up * len(last_plan):
+                fail(f"{method} log {log.round}: uplink bytes {log.uplink_bytes} differ from "
+                     f"full_up x {len(last_plan)} trained = {full_up * len(last_plan)}")
+            if tr.codec.name == "int8" and k1 <= before:
+                fail(f"{method} log {log.round} launched no int8_roundtrip kernel")
+            if min(k3_new.values()) <= 0:
+                fail(f"{method} log {log.round} launched no fused_xent forward or backward")
+            trained = group if group is not None and log.round > 0 else last_plan
+            print(f"[baselines] {method} {'merge' if method == 'fedat' else 'round'} "
+                  f"{log.round}: wall {log.wall_s:.3f} s, sim clock {log.clock:.4f} s, "
+                  f"trained {trained}, uplink_bytes {log.uplink_bytes:.0f}, acc {log.acc:.4f}, "
+                  f"int8_roundtrip launches {k1 - before}, fused_xent launches forward "
+                  f"{k3_new['forward']} backward {k3_new['backward']}")
+            before, xent = k1, k3
+        # every tree finite, and shaped as a fresh init of the model (and, for
+        # FedGKT, of its split at md2 and of its aux head)
+        gen = torch.Generator().manual_seed(0)
+        trees, fresh = {"params": tr.params}, {"params": tr.adapter.init_global(gen)}
+        if method == "fedgkt":
+            trees.update(edge=tr.client_params, server=tr.server_params, aux=tr.aux)
+            fresh["edge"], fresh["server"] = tr.adapter.split(fresh["params"], 1)
+            fresh["aux"] = tr.adapter.aux_init(gen, 1)
+        shaped = lambda tree: dict(zip(_leaf_names(tree), (t.shape for t in tree_leaves(tree))))
+        for name, tree in trees.items():
+            if shaped(tree) != shaped(fresh[name]):
+                fail(f"{method} run: the shapes of {name} changed")
+            if not all(bool(torch.isfinite(t).all()) for t in tree_leaves(tree)):
+                fail(f"{method} run: non-finite values in {name}")
+        clocks[method] = logs[-1].clock
+        print(f"[baselines] {method}: peak reserved {peak[0] / 2**30:.3f} GiB "
+              f"(allocated {peak[1] / 2**30:.3f} GiB), "
+              f"int8_roundtrip launches {before}, fused_xent launches forward "
+              f"{xent['forward']} backward {xent['backward']}, every tree finite")
+    print(f"[baselines] simulated clock after 3 rounds, FedAvg over DTFL (the main path): "
+          f"{clocks['fedavg']:.4f} / {dtfl_clock:.4f} s = {clocks['fedavg'] / dtfl_clock:.3f}x")
 
 
 def phase_resume_reference() -> None:
@@ -2111,7 +2259,7 @@ def main() -> None:
     k2_err = _phase("K2", 1, phase_k2)
     k34_err = _phase("K3/K4", 10, phase_k3_k4)
     k5_err = _phase("K5", 4, phase_k5)
-    k1_launches = _phase("main path", 7, phase_main_path)
+    k1_launches, dtfl_clock = _phase("main path", 7, phase_main_path)
     k2_launches = _phase("dcor run", 5, phase_dcor_run)
     k34_launches = _phase("transformer run", 60, phase_transformer_run)
     k35_launches = _phase("xLSTM run", 72, phase_xlstm_run)
@@ -2150,6 +2298,13 @@ def main() -> None:
     _phase("async reference", 1, phase_small_reference,
            MICRO_SMALL + ["--engine", "async", "--n-groups", "3", "--rounds", "3", "--codec",
                           "int8"], "async int8")
+    # a FedAvg round of 10 full-model clients holds what the int8 run's round
+    # of 10 clients on tier 0 does (6.05 GiB allocated)
+    _phase("baselines run", 8, phase_baselines_run, dtfl_clock)
+    for method, extra in (("fedavg", ["--codec", "int8"]), ("tifl", []), ("fedgkt", []),
+                          ("fedat", ["--engine", "async", "--codec", "int8"])):
+        _phase(f"{method} reference", 1, phase_small_reference,
+               RESNET_SMALL + ["--method", method] + extra, f"{method} {' '.join(extra)}".strip())
     entry["launches"] = k1_launches
     _phase("K1 device time", 1, phase_k1_device_time, entry)
     k2_fwd, k2_bwd = _phase("K2 times", 1, phase_k2_times, *k2_err)

@@ -2,11 +2,13 @@
 ``ResNetAdapter``, and ``:128``, ``TransformerAdapter``).
 
 Each provides global init, tier split/merge, the two DTFL local-loss
-objectives, eval, and the per-tier cost table used by the time simulator
-and the scheduler's profiling. ``split`` takes one model (the global tree);
+objectives, the full-model objective of the baselines (``full_loss``),
+FedGKT's hooks (``client_features``, ``aux_logits``, ``server_logits``),
+eval, and the per-tier cost table used by the time simulator and the
+scheduler's profiling. ``split`` takes one model (the global tree);
 ``merge`` takes a cohort's halves, whose leaves carry the leading client
-axis, as do the losses and activations: ``client_loss`` returns a (C,)
-loss per client. For the ResNet, ``dcor_alpha > 0`` adds the §4.4
+axis, as do the losses and activations: ``client_loss`` and ``full_loss``
+return a (C,) loss per client. For the ResNet, ``dcor_alpha > 0`` adds the §4.4
 distance-correlation regularizer (``privacy.dcor``, on kernel K2);
 ``patch_shuffle`` shuffles the uploaded ``z`` only when a generator is
 passed, which the DTFL step does not do, as in the JAX package
@@ -87,6 +89,20 @@ class ResNetAdapter:
         logits = R.server_forward(sp, self.cfg, z, tier + 1)
         return token_xent(logits, batch["labels"], batch.get("mask"))
 
+    def full_loss(self, params: Params, batch: dict):
+        return token_xent(R.forward(params, self.cfg, batch["images"]),
+                          batch["labels"], batch.get("mask"))
+
+    # ---- FedGKT hooks (leading client axis) ----
+    def client_features(self, cp: Params, batch: dict) -> torch.Tensor:
+        return R.client_forward(cp, self.cfg, batch["images"])
+
+    def aux_logits(self, ap: Params, z: torch.Tensor) -> torch.Tensor:
+        return R.aux_apply(ap, z)
+
+    def server_logits(self, sp: Params, z: torch.Tensor, tier: int) -> torch.Tensor:
+        return R.server_forward(sp, self.cfg, z, tier + 1)
+
     def eval_acc(self, params: Params, batch: dict) -> torch.Tensor:
         """Accuracy of one model (no client axis) on one batch."""
         one = tree_map(lambda t: t[None], params)
@@ -141,6 +157,22 @@ class TransformerAdapter:
     def server_loss(self, sp: Params, z: torch.Tensor, batch: dict, tier: int):
         logits, moe_aux = M.server_forward(sp, self.cfg, z)
         return token_xent(logits, batch["labels"], batch.get("mask")) + 0.01 * moe_aux
+
+    def full_loss(self, params: Params, batch: dict):
+        logits, moe_aux = M.forward(params, self.cfg, batch)
+        return token_xent(logits, batch["labels"], batch.get("mask")) + 0.01 * moe_aux
+
+    # ---- FedGKT hooks (leading client axis) ----
+    def client_features(self, cp: Params, batch: dict) -> torch.Tensor:
+        z, _ = M.client_forward(cp, self.cfg, batch)
+        return z
+
+    def aux_logits(self, ap: Params, z: torch.Tensor) -> torch.Tensor:
+        return M.aux_head_apply(ap, self.cfg, z)
+
+    def server_logits(self, sp: Params, z: torch.Tensor, tier: int) -> torch.Tensor:
+        logits, _ = M.server_forward(sp, self.cfg, z)
+        return logits
 
     def eval_acc(self, params: Params, batch: dict) -> torch.Tensor:
         """Next-token accuracy of one model (no client axis) on one batch."""

@@ -53,6 +53,15 @@ def _host(a) -> np.ndarray:
     return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
 
 
+def _fresh(like, tree, device):
+    """``tree`` (numpy or tensor leaves, from either package's envelope) laid
+    out as the live tree ``like``: tensor leaves become new tensors on
+    ``device``, Python-number leaves (an optimizer's ``"lr"``) numbers."""
+    return tree_map(
+        lambda l, a: (torch.tensor(_host(a), device=device) if torch.is_tensor(l)
+                      else type(l)(np.asarray(a))), like, tree)
+
+
 def _value_and_grad(loss_fn, tree):
     """(C,) per-client losses and the gradient of their sum w.r.t. ``tree``.
     The clients' slices share nothing, so each gets exactly its own
@@ -436,10 +445,8 @@ class DTFLTrainer:
         package). Parameters and aux heads become new tensors on the
         trainer's device, residuals new host tensors, each laid out as the
         live tree; no live tensor is written."""
-        fresh = lambda like, tree, device: tree_map(
-            lambda _, a: torch.tensor(_host(a), device=device), like, tree)
-        self.params = fresh(self.params, state["params"], self.device)
-        self.aux = {int(k): fresh(self.aux[int(k)], v, self.device)
+        self.params = _fresh(self.params, state["params"], self.device)
+        self.aux = {int(k): _fresh(self.aux[int(k)], v, self.device)
                     for k, v in state["aux"].items()}
         if "env" in state:
             self.env.load_state(state["env"])
@@ -475,8 +482,8 @@ class DTFLTrainer:
             for cid, st in state["ef"].items():
                 tier = int(st["tier"])
                 zc, za = self._zero_ef(tier)
-                self._ef[int(cid)] = {"tier": tier, "c": fresh(zc, st["c"], "cpu"),
-                                      "a": fresh(za, st["a"], "cpu")}
+                self._ef[int(cid)] = {"tier": tier, "c": _fresh(zc, st["c"], "cpu"),
+                                      "a": _fresh(za, st["a"], "cpu")}
 
     def save(self, path: str) -> None:
         ckpt.save(path, self.save_state())

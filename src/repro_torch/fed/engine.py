@@ -391,6 +391,7 @@ def run_async(
     verbose: bool = False,
     churn=None,
     n_groups: int = 3,
+    staleness_lambda: float = 1.0,
     checkpoint_path: str | None = None,
     checkpoint_every: int = 10,
     resume: dict | None = None,
@@ -398,7 +399,8 @@ def run_async(
 ) -> list[RoundLog]:
     """Async tier federation (``repro/fed/engine.py:414-575``): ``n_rounds``
     is a per-group wave budget, so the merge budget is ``n_rounds *
-    n_groups``.
+    n_groups``. A group's merge weight is its sample count over ``1 +
+    staleness_lambda * staleness`` (FedAT sets ``staleness_lambda``).
 
     Wave 0 is a synchronous profiling round over all participants; it seeds
     the speed estimates ``async_groups`` needs. After it each group
@@ -521,12 +523,10 @@ def run_async(
             tier_model[g], tier_weight[g] = tree, w
             last_merge[g] = version
             version += 1
-            # staleness-weighted cross-tier merge over groups that reported:
-            # weight / (1 + staleness), the JAX engine's staleness_lambda = 1
-            # (only the JAX package's FedAT sets another; the port's FedAT
-            # adds the knob)
+            # staleness-weighted cross-tier merge over groups that reported
             gs = sorted(tier_model)
-            betas = [tier_weight[x] / (1.0 + (version - 1 - last_merge[x])) for x in gs]
+            betas = [tier_weight[x] / (1.0 + staleness_lambda * (version - 1 - last_merge[x]))
+                     for x in gs]
             with torch.no_grad():
                 trainer.params = aggregation.weighted_average(
                     [tier_model[x] for x in gs], betas)

@@ -9,7 +9,7 @@ unless ``--device cpu``. String knobs (``--method``, ``--scheduler``,
 ``--codec``, ``--arch``, ``--dataset``, ``--engine``, ``--exec``,
 ``--topology``) are validated against the port's registries at parse time:
 a typo fails with the registered choice set, and a name the port does not
-have yet (a baseline method, an unported arch, ``--exec sharded``) fails
+have yet (an unported arch, ``--exec sharded``) fails
 with "not yet ported"; ``--devices`` (the sharded plane's mesh) raises
 "not yet ported" when the run is built.
 

@@ -5,8 +5,8 @@ A copy of the JAX package's factories: each returns a plain
 :class:`repro_torch.api.ExperimentSpec` whose JSON and ``spec_hash`` equal
 the JAX package's preset of the same name and arguments; callers refine
 with ``spec.with_overrides({...})``. Every preset builds a spec; building a
-Federation from one that names a component the port does not have yet (a
-baseline trainer, the sharded plane) raises "not yet ported".
+Federation from one that names a component the port does not have yet (an
+unported arch, the sharded plane) raises "not yet ported".
 
 ``PRESETS`` maps preset names to zero-argument factories (default
 arguments).

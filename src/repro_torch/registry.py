@@ -18,8 +18,8 @@ both packages. Lazy targets point at ``repro_torch`` modules.
 A component the port does not have yet stays registered under its name
 with ``ported=False``: a spec naming it validates and hashes as in the JAX
 package, and building or loading it raises ``NotImplementedError("... not
-yet ported")``. That covers the seven baseline trainers, the transformer
-archs other than SmolLM-360M and xLSTM-350M, and exec mode ``sharded``.
+yet ported")``. That covers the transformer archs other than
+SmolLM-360M and xLSTM-350M, and exec mode ``sharded``.
 
 The module is stdlib-only at import time; factories import their
 implementation lazily when built.
@@ -200,21 +200,17 @@ def register_profile_pool(name: str, *, build: Callable) -> None:
 # ---------------------------------------------------------------------------
 
 register_trainer("dtfl", "repro_torch.fed.dtfl:DTFLTrainer", scheduler_aware=True)
-# the full-model baselines (repro/fed/{fedavg,...}.py): not yet ported
-register_trainer("fedavg", "repro_torch.fed.fedavg:FedAvgTrainer", ported=False)
-register_trainer("fedyogi", "repro_torch.fed.fedyogi:FedYogiTrainer", supports_async=False,
-                 ported=False)
+# the full-model baselines (repro/fed/{fedavg,...}.py)
+register_trainer("fedavg", "repro_torch.fed.fedavg:FedAvgTrainer")
+register_trainer("fedyogi", "repro_torch.fed.fedyogi:FedYogiTrainer", supports_async=False)
 register_trainer("splitfed", "repro_torch.fed.splitfed:SplitFedTrainer",
-                 supports_codec=False, ported=False)
+                 supports_codec=False)
 register_trainer("fedgkt", "repro_torch.fed.fedgkt:FedGKTTrainer",
-                 supports_async=False, supports_codec=False, ported=False)
-register_trainer("tifl", "repro_torch.fed.tifl:TiFLTrainer", supports_async=False,
-                 ported=False)
+                 supports_async=False, supports_codec=False)
+register_trainer("tifl", "repro_torch.fed.tifl:TiFLTrainer", supports_async=False)
 register_trainer("drop30", "repro_torch.fed.dropstrag:DropStragglerTrainer",
-                 supports_async=False, ported=False)
-register_trainer("fedat", "repro_torch.fed.fedat:FedATTrainer", async_native=True,
-                 ported=False)
-
+                 supports_async=False)
+register_trainer("fedat", "repro_torch.fed.fedat:FedATTrainer", async_native=True)
 
 def _parse_dynamic(s: str) -> str | None:
     if s == "dynamic":

@@ -98,7 +98,7 @@ def test_unported_options_fail_loudly(capsys, tmp_path):
         1, eval_batch, engine="async", n_groups=2)) == 3
     capsys.readouterr()
     # options still to port: names fail at parse time, the mesh when built
-    for extra in (["--arch", "hymba-1.5b"], ["--method", "fedavg"], ["--exec", "sharded"]):
+    for extra in (["--arch", "hymba-1.5b"], ["--arch", "yi-6b"], ["--exec", "sharded"]):
         with pytest.raises(SystemExit):
             train.build_parser().parse_args(extra)
         assert "not yet ported" in capsys.readouterr().err, extra
