@@ -21,9 +21,9 @@ Phases (any failure exits non-zero and prints no result line):
      none may spill (one build serves every head dim up to 512).
   3. kernels: hold each kernel against its plain PyTorch version on the
      card at the shapes its path gives it (bit equality for K1, stated
-     tolerances for K2, at the dcor path's shapes, a transformer's with
-     dcor (4, 4, 491,520) and ragged ones; K2 reruns must be
-     bit-identical); time K1, its plain version and one PyTorch
+     tolerances for K2, at the dcor path's shapes, the transformers' with
+     dcor (4, 4, 491,520) and (4, 4, 1,048,576) and ragged ones; K2
+     reruns must be bit-identical); time K1, its plain version and one PyTorch
      library call with CUDA events, beside the bound: the larger of the
      bytes over the card's memory rate and the fp32 operations over its
      fp32 rate.
@@ -43,7 +43,8 @@ Phases (any failure exits non-zero and prints no result line):
      by the CPU tests), once with the int8 codec and once with
      ``--dcor-alpha 0.5``; clocks, tier assignments and uplink bytes must be
      equal, parameters close.
-  7. K2 times at (5, 32, 65,536), (5, 32, 3,072) and (4, 4, 491,520), as
+  7. K2 times at (5, 32, 65,536), (5, 32, 3,072), (4, 4, 491,520) and
+     (4, 4, 1,048,576), as
      K1's in phase 3 plus device time from CUDA-graph replays (the
      kernels, their plain versions and the library yardsticks), after the
      runs so the graphs' memory stays out of their peak; K1's device time
@@ -52,7 +53,12 @@ Phases (any failure exits non-zero and prints no result line):
      busy share, K2's share, the top kernels), printed only.
   8. K3 and K4 (fused cross-entropy, flash attention), forward and
      backward, against their plain versions on the card at the transformer
-     path's shapes and at ragged ones, K4's every shape in bf16 and fp32
+     path's shapes, at ragged ones and at the full-width heads of the LLM
+     configs (K4 at 8 sequences of 512 tokens: granite-3-2b 32/8 heads at
+     hd 64, yi-6b 32/4, deepseek-67b 64/8, deepseek-moe-16b 16/16 and
+     llama4-scout 40/8 at hd 128; K3 in bf16 at (8,192, 49,155), granite's
+     odd vocab, whose rows are not 16-byte aligned, (2,048, 64,000),
+     (4,096, 102,400) and (2,048, 202,048)), K4's every shape in bf16 and fp32
      (the absolute tolerances of tests/test_torch_kernels.py: K4 fp32 2e-5
      forward and 1e-4 backward, bf16 rtol 2e-2 with atol 1e-2; K3 loss
      2e-4); K4's backward must be bit-identical run to run. At the path's
@@ -147,6 +153,47 @@ Phases (any failure exits non-zero and prints no result line):
  23. the reduced ResNet-56 on the card and on the CPU, as phase 6, for
      fedavg with int8, tifl, fedgkt and fedat (async, int8); each run's
      trained clients must be equal too.
+The LLM configs (after phase 14; ``LLM_RUNS``, ``LLM_ARCHS``). The
+configs keep their published widths; the depth and the client count are
+cut until one card holds the run, by a reckoning from the shapes on the
+meta device (``_llm_reckoning``: 28 B a client-parameter for the cohort's
+state, the global model and aux heads, the logits, Adam's temporaries),
+printed before each run beside its measured peak:
+ 24. granite-3-2b with dcor: full width (d_model 2048, 32 query heads over
+     8 KV heads, hd 64, d_ff 8192, vocab 49,155), 4 layers in 4 modules,
+     priced on the full 40-layer config, 4 clients, batch 4 x 512, 3
+     rounds, ``dcor_alpha`` 0.5: K2 at (4, 4, 1,048,576), K3 at (8,192,
+     49,155), K4 at (16, 512, 32/8, 64). Built through the port's
+     ``DTFLTrainer`` and ``TransformerAdapter`` as the CLI builds a
+     transformer run (the CLI has no depth flag). Per round wall, clock,
+     tiers, uplink bytes and K2, K3 and K4 launches: every round must
+     launch each forward and backward; every parameter and aux head must
+     stay finite and keep its shape. Each cohort (one a tier) launches the
+     kernels at its own client count, so after the run, with the trainer
+     freed, every shape K2, K3 and K4 launched at (the wrappers'
+     ``SHAPES``) is held against its plain version as phases 3 and 8
+     hold theirs; their errors join the kernels' ``max_abs_err``.
+ 25. yi-6b at full width (d_model 4096, 32/4 heads, hd 128, d_ff 11,008,
+     vocab 64,000), 2 layers in 2 modules, 2 clients, batch 4 x 512, 2
+     rounds, as 24 with K3 and K4.
+ 26. deepseek-moe-16b at full width (d_model 2048, 16/16 heads at hd 128,
+     64 routed experts top-6 at d_ff 1408, 2 shared at 2816, vocab
+     102,400), 2 layers in 2 modules, 1 client, batch 4 x 512, 3 rounds, as
+     25; per round also each layer's share of dropped (token, k)
+     assignments and ``moe_aux``, on client 0's first batch through the
+     global model.
+ 27. the reduced variants of the five configs on the card and on the CPU,
+     as phase 6 (granite-3-2b also with ``--dcor-alpha 0.5``); for the MoE
+     configs the count of routes that differ when the CPU run's final model
+     routes one batch on the card and on the CPU.
+ 28. (at the end) K4 at deepseek-moe-16b's heads (8, 512, 16/16, 128) and
+     K3 at (8,192, 49,155) and (4,096, 102,400), timed as phase 11; then
+     torch.profiler over two rounds of the MoE run (host and device
+     activity, input shapes): the device busy share, K3's and K4's shares,
+     the dispatch and combine einsums' share (every ``aten::bmm`` over the
+     group's E x capacity expert slots, forward and backward), the top
+     kernels and the top operators by their kernels' device time, with
+     their input shapes. Printed only.
 Every phase first waits, up to CARD_WAIT_S seconds over the whole run, until
 the card has the device memory it needs free: another process on the same
 card (a second run started beside this one) may hold its memory until it
@@ -629,16 +676,58 @@ def _grad_error(got, want, x, dist, g) -> float:
     return float((got - want).abs().max())
 
 
-def phase_k2() -> tuple[float, float]:
-    """K2 forward and backward against their plain versions at the dcor
-    path's shapes (images 3,072; z of stage 1 up to 65,536), a ragged
-    shape, B = 1 and a batch of identical rows. Returns the largest
-    forward and backward |diff|."""
+def _check_k2(label: str, shape: tuple, g) -> tuple[float, float]:
+    """K2 forward and backward at ``shape`` against their plain versions,
+    reruns bit-identical; ``label`` "identical rows" makes every row one.
+    Returns the max forward and backward |diff|."""
     import torch
 
     from repro_torch import privacy
     from repro_torch.kernels import dcor
     from repro_torch.kernels.ref import D_MIN, pairwise_dist_bwd_ref, pairwise_dist_ref
+
+    x = torch.randn(shape, generator=g, device="cuda")
+    if label == "identical rows":
+        x = x[:, :1].expand(shape).contiguous()
+    got = dcor.dist_forward(x)
+    want = pairwise_dist_ref(x)
+    gd = torch.randn(got.shape, generator=g, device="cuda")
+    gx = dcor.dist_backward(x, got, gd)
+    gx_want = pairwise_dist_bwd_ref(x, got, gd)
+    torch.cuda.synchronize()
+    if not (torch.equal(dcor.dist_forward(x), got)
+            and torch.equal(dcor.dist_backward(x, got, gd), gx)):
+        fail(f"pairwise_dist {label} {shape}: a rerun gave other bits")
+    if label == "identical rows":
+        u = 2.0 ** -24
+        gamma = shape[2] * u / (1 - shape[2] * u)
+        bound = (4 * gamma * float((x.double() ** 2).sum(-1).max())) ** 0.5
+        if not bool((got == D_MIN).all()) or float(want.max()) > bound:
+            fail("identical rows: distances not at the clamp floor / within bound")
+        if gx.any() or gx_want.any():
+            fail("identical rows: the backward routed a gradient")
+        z = torch.randn(2, 32, 500, generator=g, device="cuda", requires_grad=True)
+        val = privacy.dcor(x, z)
+        (gz,) = torch.autograd.grad(val.sum(), z)
+        if not bool((val == 0).all()) or not bool(torch.isfinite(gz).all()):
+            fail("identical rows: dcor is not exactly 0 with a finite gradient")
+        err, rel, plain_diag = float((got - want).abs().max()), 0.0, float(want.max())
+    else:
+        err, rel, plain_diag = _dist_errors(got, want, x)
+    gerr = _grad_error(gx, gx_want, x, got, gd)
+    print(f"[kernels] pairwise_dist {label} {shape}: forward max |diff| {err:.3g} "
+          f"(off-diagonal rel {rel:.3g}, plain diagonal max {plain_diag:.3g}), "
+          f"backward max |diff| {gerr:.3g}, reruns bit-identical")
+    return err, gerr
+
+
+def phase_k2() -> tuple[float, float]:
+    """K2 forward and backward against their plain versions at the dcor
+    path's shapes (images 3,072; z of stage 1 up to 65,536), the
+    transformers' with dcor (a client's 4 x 512 embedded tokens), a ragged
+    shape, B = 1 and a batch of identical rows. Returns the largest
+    forward and backward |diff|."""
+    import torch
 
     g = torch.Generator(device="cuda").manual_seed(1)
     cases = [
@@ -646,6 +735,7 @@ def phase_k2() -> tuple[float, float]:
         ("z, 16,384", (5, 32, 16_384)),
         ("images, 5 clients", (5, 32, 3_072)),
         ("transformer + dcor, SmolLM-360M", (4, 4, 491_520)),
+        ("transformer + dcor, granite-3-2b", (4, 4, 1_048_576)),
         ("B = 8", (3, 8, 10_000)),
         ("ragged", (3, 17, 1_001)),
         ("ragged, B > 32", (2, 70, 4_100)),
@@ -654,45 +744,15 @@ def phase_k2() -> tuple[float, float]:
     ]
     fwd_err = bwd_err = 0.0
     for label, shape in cases:
-        x = torch.randn(shape, generator=g, device="cuda")
-        if label == "identical rows":
-            x = x[:, :1].expand(shape).contiguous()
-        got = dcor.dist_forward(x)
-        want = pairwise_dist_ref(x)
-        gd = torch.randn(got.shape, generator=g, device="cuda")
-        gx = dcor.dist_backward(x, got, gd)
-        gx_want = pairwise_dist_bwd_ref(x, got, gd)
-        torch.cuda.synchronize()
-        if not (torch.equal(dcor.dist_forward(x), got)
-                and torch.equal(dcor.dist_backward(x, got, gd), gx)):
-            fail(f"pairwise_dist {label} {shape}: a rerun gave other bits")
-        if label == "identical rows":
-            u = 2.0 ** -24
-            gamma = shape[2] * u / (1 - shape[2] * u)
-            bound = (4 * gamma * float((x.double() ** 2).sum(-1).max())) ** 0.5
-            if not bool((got == D_MIN).all()) or float(want.max()) > bound:
-                fail("identical rows: distances not at the clamp floor / within bound")
-            if gx.any() or gx_want.any():
-                fail("identical rows: the backward routed a gradient")
-            z = torch.randn(2, 32, 500, generator=g, device="cuda", requires_grad=True)
-            val = privacy.dcor(x, z)
-            (gz,) = torch.autograd.grad(val.sum(), z)
-            if not bool((val == 0).all()) or not bool(torch.isfinite(gz).all()):
-                fail("identical rows: dcor is not exactly 0 with a finite gradient")
-            err, rel, plain_diag = float((got - want).abs().max()), 0.0, float(want.max())
-        else:
-            err, rel, plain_diag = _dist_errors(got, want, x)
-        gerr = _grad_error(gx, gx_want, x, got, gd)
+        err, gerr = _check_k2(label, shape, g)
         fwd_err, bwd_err = max(fwd_err, err), max(bwd_err, gerr)
-        print(f"[kernels] pairwise_dist {label} {shape}: forward max |diff| {err:.3g} "
-              f"(off-diagonal rel {rel:.3g}, plain diagonal max {plain_diag:.3g}), "
-              f"backward max |diff| {gerr:.3g}, reruns bit-identical")
     return fwd_err, bwd_err
 
 
 def phase_k2_times(fwd_err: float, bwd_err: float) -> list[dict]:
     """K2's times at (5, 32, 65,536) and (5, 32, 3,072), the dcor path's,
-    and at (4, 4, 491,520), a transformer's with dcor: CUDA events and
+    and at (4, 4, 491,520) and (4, 4, 1,048,576), SmolLM-360M's and
+    granite-3-2b's with dcor: CUDA events and
     CUDA-graph device time for the kernels, their plain versions and the
     library yardsticks. Run after the training runs, so the graphs' memory
     pools stay out of their peak memory."""
@@ -703,7 +763,7 @@ def phase_k2_times(fwd_err: float, bwd_err: float) -> list[dict]:
 
     g = torch.Generator(device="cuda").manual_seed(3)
     entries = []
-    for shape in ((5, 32, 65_536), (5, 32, 3_072), (4, 4, 491_520)):
+    for shape in ((5, 32, 65_536), (5, 32, 3_072), (4, 4, 491_520), (4, 4, 1_048_576)):
         C, B, F = shape
         x = torch.randn(shape, generator=g, device="cuda")
         dist = dcor.dist_forward(x)
@@ -979,10 +1039,10 @@ def _leaf_names(tree, prefix: str = "") -> list[str]:
 
 
 def phase_small_reference(argv: list[str], label: str,
-                          bounds: tuple[float, float, float] = (0.5, 0.1, 0.01)) -> None:
+                          bounds: tuple[float, float, float] = (0.5, 0.1, 0.01)):
     """The CLI at a tiny size on the card against the CPU's plain path;
     parameters within ``bounds`` (max, 99th percentile, median) in units of
-    lr * local steps."""
+    lr * local steps. Returns the card's and the CPU's trainers."""
     import numpy as np
 
     from repro_torch.bridge import to_numpy_tree
@@ -1024,6 +1084,7 @@ def phase_small_reference(argv: list[str], label: str,
     if d.max() > bounds[0] * unit or p99 > bounds[1] * unit or np.median(d) > bounds[2] * unit:
         fail(f"{label}: card and CPU parameters differ: max {d.max() / unit} U, "
              f"99th percentile {p99 / unit} U, median {np.median(d) / unit} U")
+    return gtr, ctr
 
 
 POPULATION_ARGV = ["--arch", "resnet-56", "--full-size", "--population", "100000",
@@ -1653,7 +1714,7 @@ def phase_k1_device_time(entry: dict) -> None:
 
 # K4 cases: (N, S, H, KV, hd, causal, window), each in bf16 and fp32; the
 # first is the path's (16 sequences of 512 tokens, 15 query heads over 5 KV
-# heads, hd 64); the rows of tests/test_torch_kernels.py
+# heads, hd 64); the first ten are the rows of tests/test_torch_kernels.py
 ATTN_CASES = [
     ("path", 16, 512, 15, 5, 64, True, 0),
     ("window 128", 4, 512, 15, 5, 64, True, 128),
@@ -1665,13 +1726,25 @@ ATTN_CASES = [
     ("hd 128", 2, 150, 4, 1, 128, True, 0),
     ("hd 40", 2, 70, 3, 3, 40, True, 0),
     ("hd 20, element-wise staging", 2, 90, 4, 2, 20, True, 0),
+    # the full-width heads of the LLM configs, 8 sequences of 512 tokens
+    ("granite-3-2b heads", 8, 512, 32, 8, 64, True, 0),
+    ("yi-6b heads", 8, 512, 32, 4, 128, True, 0),
+    ("deepseek-67b heads", 8, 512, 64, 8, 128, True, 0),
+    ("deepseek-moe-16b heads", 8, 512, 16, 16, 128, True, 0),
+    ("llama4-scout heads", 8, 512, 40, 8, 128, True, 0),
 ]
 ATTN_DTYPES = ("bfloat16", "float32")
-# K3 cases: (T, V, dtype): the path's heads, the ResNet's classifier, ragged
+# K3 cases: (T, V, dtype): the path's heads, the ResNet's classifier,
+# ragged, then the LLM configs' vocabularies (granite's odd 49,155 leaves
+# bf16 rows off 16-byte alignment: the element-wise path)
 XENT_CASES = [
     ("path heads", 8_192, 49_152, "bfloat16"),
     ("ResNet classifier", 320, 10, "float32"),
     ("ragged", 1_000, 50_001, "bfloat16"),
+    ("granite-3-2b heads", 8_192, 49_155, "bfloat16"),
+    ("yi-6b heads", 2_048, 64_000, "bfloat16"),
+    ("deepseek heads", 4_096, 102_400, "bfloat16"),
+    ("llama4-scout heads", 2_048, 202_048, "bfloat16"),
 ]
 
 
@@ -1718,79 +1791,100 @@ def _ds_rounding(q, k, v, o, lse, do, grads) -> None:
                           for label, x in err.items()))
 
 
-def phase_k3_k4() -> dict:
-    """K3 and K4, forward and backward, against their plain versions on the
-    same inputs (the tolerances of tests/test_torch_kernels.py). Returns
-    the largest |diff| of each of the four kernels."""
+def _check_k4(label: str, N: int, S: int, H: int, KV: int, hd: int, causal: bool,
+              window: int, dtype, g) -> tuple[float, float]:
+    """K4 forward and backward at one shape and dtype against their plain
+    versions (the tolerances of tests/test_torch_kernels.py), the backward
+    bit-identical run to run. Returns the max forward and backward |diff|."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import attention_bwd_ref, attention_ref
+
+    q = torch.randn(N, S, H, hd, generator=g, device="cuda").to(dtype)
+    k = torch.randn(N, S, KV, hd, generator=g, device="cuda").to(dtype)
+    v = torch.randn(N, S, KV, hd, generator=g, device="cuda").to(dtype)
+    do = torch.randn(N, S, H, hd, generator=g, device="cuda").to(dtype)
+    o, lse = fa.attn_forward(q, k, v, causal=causal, window=window)
+    grads = fa.attn_backward(q, k, v, o, lse, do, causal=causal, window=window)
+    again = fa.attn_backward(q, k, v, o, lse, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    dt = str(dtype).removeprefix("torch.")
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        fail(f"flash_attention backward is not bit-identical run to run on {label} {dt}")
+    o_want, lse_want = attention_ref(q, k, v, causal=causal, window=window)
+    want = attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window)
+    # (rtol, atol): fp32 as tests/test_kernels.py:27; bf16 measured on the
+    # H100 at 3.9e-3 forward and 1.6e-2 backward, one bf16 step of a
+    # gradient of magnitude 2-4 (the plain version's own output rounding
+    # differs from fp32 as much), inside 1e-2 + 2e-2 |want| with room; a
+    # bf16 fault of a typical output's size still fails
+    fwd_tol, bwd_tol = (((2e-5, 2e-5), (1e-4, 1e-4)) if dtype == torch.float32
+                        else ((2e-2, 1e-2), (2e-2, 1e-2)))
+    ok, fwd = _close(o, o_want, *fwd_tol)
+    if not ok or not torch.allclose(lse, lse_want, atol=1e-5, rtol=1e-5):
+        fail(f"flash_attention forward differs from its plain version on {label}: "
+             f"max |diff| {fwd}")
+    bwd = 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), grads, want):
+        ok, d = _close(a, b, *bwd_tol)
+        bwd = max(bwd, d)
+        if not ok:
+            fail(f"flash_attention backward {name} differs from its plain version on "
+                 f"{label}: max |diff| {d}")
+    print(f"[kernels] flash_attention {label} {(N, S, H, KV, hd)} {dt} causal={causal} "
+          f"window={window}: forward max |diff| {fwd:.3g}, backward max |diff| {bwd:.3g}, "
+          f"backward bit-identical run to run")
+    if label == "path" and dtype == torch.bfloat16:
+        _ds_rounding(q, k, v, o, lse, do, grads)
+    return fwd, bwd
+
+
+def _check_k3(label: str, T: int, V: int, dtype, g) -> tuple[float, float]:
+    """K3 forward and backward at (T, V) against their plain versions.
+    Returns the max loss and gradient |diff|."""
+    import torch
+
     from repro_torch.kernels import fused_xent as fx
-    from repro_torch.kernels.ref import (attention_bwd_ref, attention_ref, fused_xent_bwd_ref,
-                                         fused_xent_ref)
+    from repro_torch.kernels.ref import fused_xent_bwd_ref, fused_xent_ref
+
+    logits = (3 * torch.randn(T, V, generator=g, device="cuda")).to(dtype)
+    labels = torch.randint(0, V, (T,), generator=g, device="cuda")
+    gt = torch.randn(T, generator=g, device="cuda")
+    loss, lse = fx.xent_forward(logits, labels)
+    grad = fx.xent_backward(logits, labels, lse, gt)
+    torch.cuda.synchronize()
+    loss_want, lse_want = fused_xent_ref(logits, labels)
+    fwd = float((loss - loss_want).abs().max())
+    if fwd > 2e-4 or float((lse - lse_want).abs().max()) > 2e-4:
+        fail(f"fused_xent forward differs from its plain version on {label}: {fwd}")
+    ok, bwd = _close(grad, fused_xent_bwd_ref(logits, labels, lse, gt),
+                     1e-5 if dtype == torch.float32 else 1e-2, 1e-6)
+    if not ok or grad.dtype != dtype:
+        fail(f"fused_xent backward differs from its plain version on {label}: {bwd}")
+    print(f"[kernels] fused_xent {label} {(T, V)} {str(dtype).removeprefix('torch.')}: "
+          f"loss max |diff| {fwd:.3g}, gradient max |diff| {bwd:.3g}")
+    return fwd, bwd
+
+
+def _merge_err(err: dict, name: str, fwd: float, bwd: float) -> None:
+    err[f"{name}_forward"] = max(err[f"{name}_forward"], fwd)
+    err[f"{name}_backward"] = max(err[f"{name}_backward"], bwd)
+
+
+def phase_k3_k4() -> dict:
+    """K3 and K4, forward and backward, against their plain versions on the
+    same inputs (``_check_k4``, ``_check_k3``). Returns the largest |diff|
+    of each of the four kernels."""
+    import torch
 
     g = torch.Generator(device="cuda").manual_seed(4)
     err = {"flash_attention_forward": 0.0, "flash_attention_backward": 0.0,
            "fused_xent_forward": 0.0, "fused_xent_backward": 0.0}
-    for (label, N, S, H, KV, hd, causal, window), dt in product(ATTN_CASES, ATTN_DTYPES):
-        dtype = getattr(torch, dt)
-        q = torch.randn(N, S, H, hd, generator=g, device="cuda").to(dtype)
-        k = torch.randn(N, S, KV, hd, generator=g, device="cuda").to(dtype)
-        v = torch.randn(N, S, KV, hd, generator=g, device="cuda").to(dtype)
-        do = torch.randn(N, S, H, hd, generator=g, device="cuda").to(dtype)
-        o, lse = fa.attn_forward(q, k, v, causal=causal, window=window)
-        grads = fa.attn_backward(q, k, v, o, lse, do, causal=causal, window=window)
-        again = fa.attn_backward(q, k, v, o, lse, do, causal=causal, window=window)
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
-            fail(f"flash_attention backward is not bit-identical run to run on {label} {dt}")
-        o_want, lse_want = attention_ref(q, k, v, causal=causal, window=window)
-        want = attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window)
-        # (rtol, atol): fp32 as tests/test_kernels.py:27; bf16 measured on the
-        # H100 at 3.9e-3 forward and 1.6e-2 backward, one bf16 step of a
-        # gradient of magnitude 2-4 (the plain version's own output rounding
-        # differs from fp32 as much), inside 1e-2 + 2e-2 |want| with room; a
-        # bf16 fault of a typical output's size still fails
-        fwd_tol, bwd_tol = (((2e-5, 2e-5), (1e-4, 1e-4)) if dtype == torch.float32
-                            else ((2e-2, 1e-2), (2e-2, 1e-2)))
-        ok, fwd = _close(o, o_want, *fwd_tol)
-        if not ok or not torch.allclose(lse, lse_want, atol=1e-5, rtol=1e-5):
-            fail(f"flash_attention forward differs from its plain version on {label}: "
-                 f"max |diff| {fwd}")
-        bwd = 0.0
-        for name, a, b in zip(("dq", "dk", "dv"), grads, want):
-            ok, d = _close(a, b, *bwd_tol)
-            bwd = max(bwd, d)
-            if not ok:
-                fail(f"flash_attention backward {name} differs from its plain version on "
-                     f"{label}: max |diff| {d}")
-        err["flash_attention_forward"] = max(err["flash_attention_forward"], fwd)
-        err["flash_attention_backward"] = max(err["flash_attention_backward"], bwd)
-        print(f"[kernels] flash_attention {label} {(N, S, H, KV, hd)} {dt} causal={causal} "
-              f"window={window}: forward max |diff| {fwd:.3g}, backward max |diff| {bwd:.3g}, "
-              f"backward bit-identical run to run")
-        if label == "path" and dtype == torch.bfloat16:
-            _ds_rounding(q, k, v, o, lse, do, grads)
+    for (label, *shape), dt in product(ATTN_CASES, ATTN_DTYPES):
+        _merge_err(err, "flash_attention", *_check_k4(label, *shape, getattr(torch, dt), g))
     for label, T, V, dt in XENT_CASES:
-        dtype = getattr(torch, dt)
-        logits = (3 * torch.randn(T, V, generator=g, device="cuda")).to(dtype)
-        labels = torch.randint(0, V, (T,), generator=g, device="cuda")
-        gt = torch.randn(T, generator=g, device="cuda")
-        loss, lse = fx.xent_forward(logits, labels)
-        grad = fx.xent_backward(logits, labels, lse, gt)
-        torch.cuda.synchronize()
-        loss_want, lse_want = fused_xent_ref(logits, labels)
-        fwd = float((loss - loss_want).abs().max())
-        if fwd > 2e-4 or float((lse - lse_want).abs().max()) > 2e-4:
-            fail(f"fused_xent forward differs from its plain version on {label}: {fwd}")
-        ok, bwd = _close(grad, fused_xent_bwd_ref(logits, labels, lse, gt),
-                         1e-5 if dtype == torch.float32 else 1e-2, 1e-6)
-        if not ok or grad.dtype != dtype:
-            fail(f"fused_xent backward differs from its plain version on {label}: {bwd}")
-        err["fused_xent_forward"] = max(err["fused_xent_forward"], fwd)
-        err["fused_xent_backward"] = max(err["fused_xent_backward"], bwd)
-        print(f"[kernels] fused_xent {label} {(T, V)} {dt}: loss max |diff| {fwd:.3g}, "
-              f"gradient max |diff| {bwd:.3g}")
+        _merge_err(err, "fused_xent", *_check_k3(label, T, V, getattr(torch, dt), g))
     return err
 
 
@@ -1862,24 +1956,17 @@ def phase_transformer_run() -> dict:
     return launches
 
 
-def phase_k3_k4_times(err: dict) -> list[dict]:
-    """K3 and K4 times at the path's shapes: CUDA events and CUDA-graph
-    device time for the kernels, their plain versions and the library
-    yardsticks (timed here, never called by the port; a backward yardstick
-    is its forward and autograd's backward, both captured)."""
+def _k4_times(N: int, S: int, H: int, KV: int, hd: int, g) -> dict:
+    """K4 at (N, S, H/KV, hd), causal, bf16: CUDA events and CUDA-graph
+    device time for the kernels, their plain versions and SDPA (timed here,
+    never called by the port; the backward yardstick is its forward and
+    autograd's backward, both captured), beside the bound."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import fused_xent as fx
-    from repro_torch.kernels.ref import (attention_bwd_ref, attention_ref, fused_xent_bwd_ref,
-                                         fused_xent_ref)
+    from repro_torch.kernels.ref import attention_bwd_ref, attention_ref
 
-    g = torch.Generator(device="cuda").manual_seed(5)
-    entries = []
-
-    # K4 at the path's shape: 16 sequences x 15 heads, S = 512, hd 64, causal, bf16
-    N, S, H, KV, hd = 16, 512, 15, 5, 64
     q = torch.randn(N, S, H, hd, generator=g, device="cuda").bfloat16()
     k = torch.randn(N, S, KV, hd, generator=g, device="cuda").bfloat16()
     v = torch.randn(N, S, KV, hd, generator=g, device="cuda").bfloat16()
@@ -1912,9 +1999,18 @@ def phase_k3_k4_times(err: dict) -> list[dict]:
         2 * q_bytes + 2 * kv_bytes + lse_bytes, 2 * 2 * pairs * hd, BF16_OPS_PER_S)
     attn["backward"]["bound_ms"], attn["backward"]["bound_by"] = _bound(
         4 * q_bytes + 4 * kv_bytes + lse_bytes, 5 * 2 * pairs * hd, BF16_OPS_PER_S)
+    return attn
 
-    # K3 at the heads' shape: 4 clients x 4 sequences x 512 tokens, vocab 49,152, bf16
-    T, V = 8_192, 49_152
+
+def _k3_times(T: int, V: int, g) -> dict:
+    """K3 at (T, V) bf16, as ``_k4_times``; the yardstick is
+    ``F.cross_entropy`` (``reduction="none"``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import fused_xent as fx
+    from repro_torch.kernels.ref import fused_xent_bwd_ref, fused_xent_ref
+
     logits = (3 * torch.randn(T, V, generator=g, device="cuda")).bfloat16()
     labels = torch.randint(0, V, (T,), generator=g, device="cuda")
     gt = torch.randn(T, generator=g, device="cuda")
@@ -1942,18 +2038,36 @@ def phase_k3_k4_times(err: dict) -> list[dict]:
         2 * T * V + 8 * T + 8 * T, 3 * T * V)
     xent["backward"]["bound_ms"], xent["backward"]["bound_by"] = _bound(
         2 * 2 * T * V + 8 * T + 8 * T, 4 * T * V)
+    return xent
 
+
+def _print_times(name: str, shape: str, times: dict) -> None:
+    for direction in ("forward", "backward"):
+        t = times[direction]
+        print(f"[kernels] {name} {direction} at {shape}: kernel {t['ms']:.4f} ms (device "
+              f"{t['device_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms (device "
+              f"{t['plain_device_ms']:.4f} ms), library {t['library_ms']:.4f} ms (device "
+              f"{t['library_device_ms']:.4f} ms), bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}), {100 * t['bound_ms'] / t['device_ms']:.1f}% of it on "
+              f"device time")
+
+
+def phase_k3_k4_times(err: dict) -> list[dict]:
+    """K3 and K4 times at the SmolLM-360M path's shapes (``_k4_times``,
+    ``_k3_times``): 16 sequences x 15 heads over 5, S = 512, hd 64; 8,192
+    tokens over a vocab of 49,152."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    entries = []
+    attn = _k4_times(16, 512, 15, 5, 64, g)
+    xent = _k3_times(8_192, 49_152, g)
     for name, times, src, replaces, shape in (
             ("flash_attention", attn, "flash_attention.cu", "flash_attention.py:75",
              "(16, 512, 15/5, 64) bf16 causal"),
             ("fused_xent", xent, "fused_xent.cu", "fused_xent.py:62", "(8192, 49152) bf16")):
+        _print_times(name, shape, times)
         for direction in ("forward", "backward"):
-            t = times[direction]
-            print(f"[kernels] {name} {direction} at {shape}: kernel {t['ms']:.4f} ms (device "
-                  f"{t['device_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms (device "
-                  f"{t['plain_device_ms']:.4f} ms), library {t['library_ms']:.4f} ms (device "
-                  f"{t['library_device_ms']:.4f} ms), bound {t['bound_ms']:.4f} ms "
-                  f"({t['bound_by']})")
             entries.append({
                 "name": f"{name}_{direction}",
                 "route": "cuda",
@@ -1961,7 +2075,7 @@ def phase_k3_k4_times(err: dict) -> list[dict]:
                 "replaces": f"src/repro/kernels/{replaces}",
                 "launches": None,        # filled from the transformer run
                 "max_abs_err": err[f"{name}_{direction}"],
-                **t,
+                **times[direction],
             })
     return entries
 
@@ -2249,6 +2363,338 @@ def phase_k5_times(err: dict) -> list[dict]:
     return entries
 
 
+# The LLM configs at full width (d_model, heads, d_ff, experts, vocab as
+# published), their depth cut so one card holds the run: (arch, layers,
+# modules, clients, batch, rounds, dcor_alpha); 512 tokens a sequence, 2
+# batches a client, priced on the full config as the CLI prices it.
+LLM_SEQ = 512
+LLM_RUNS = {
+    "granite-3-2b + dcor": ("granite-3-2b", 4, 4, 4, 4, 3, 0.5),
+    "yi-6b": ("yi-6b", 2, 2, 2, 4, 2, 0.0),
+    "deepseek-moe-16b": ("deepseek-moe-16b", 2, 2, 1, 4, 3, 0.0),
+}
+# the reduced configs on the card and the CPU: the CLI at --arch (SMOLLM_SMALL's sizes)
+LLM_ARCHS = ("granite-3-2b", "yi-6b", "deepseek-67b", "deepseek-moe-16b",
+             "llama4-scout-17b-a16e")
+
+
+def _llm_trainer(arch, n_layers, n_modules, clients, batch, dcor_alpha):
+    """DTFL on ``arch`` at full width cut to ``n_layers`` layers in
+    ``n_modules`` modules, built as the CLI builds a transformer run (the CLI
+    has no depth flag): the LM task, ``batch`` x 512 tokens, 2 batches a
+    client, the paper's profiles, Adam 1e-3, seed 0; the time model prices
+    the full config."""
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SeqClientDataset
+    from repro_torch.data.synthetic import SeqTask
+    from repro_torch.fed.adapter import TransformerAdapter
+    from repro_torch.fed.client import HeteroEnv, SimClient
+    from repro_torch.fed.dtfl import DTFLTrainer
+
+    full = get_config(arch)
+    ad = TransformerAdapter(full.replace(n_layers=n_layers, n_modules=n_modules),
+                            seq_len=LLM_SEQ, cost_cfg=full, dcor_alpha=dcor_alpha)
+    task = SeqTask(vocab=ad.cfg.vocab)
+    data = [SimClient(i, SeqClientDataset(task, 2, batch, LLM_SEQ, i), None)
+            for i in range(clients)]
+    trainer = DTFLTrainer(ad, data, HeteroEnv(clients), optim.adam(1e-3), seed=0,
+                          device="cuda")
+    return trainer, next(task.batches(batch, LLM_SEQ, 1, seed=99))
+
+
+def _llm_reckoning(arch, n_layers, n_modules, clients, batch) -> dict:
+    """Device memory of an LLM run reckoned from the shapes of ``init`` on
+    the meta device, in GiB: the cohort's state, 28 B a client-parameter
+    (weights, gradients, Adam's m and v, and the new weights, m and v that
+    the optimizer builds beside the old before the step returns: 7 x 4 B;
+    the SmolLM-360M and xLSTM-350M runs' peaks came to 29-31 B); the global
+    model and the per-tier aux heads (4 B); the aux head's and the server's
+    logits, bf16, with their gradients; Adam's temporaries on the largest
+    leaf (5 x 4 B). Activations are not counted."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tiering
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(arch).replace(n_layers=n_layers, n_modules=n_modules,
+                                   tie_embeddings=False)
+    model = tree_leaves(M.init(None, cfg, device="meta"))
+    aux = tree_leaves(M.aux_head_init(None, cfg, device="meta"))
+    p_model, p_aux = sum(t.numel() for t in model), sum(t.numel() for t in aux)
+    largest = max(t.numel() for t in model + aux)
+    gib = 2.0 ** 30
+    parts = {
+        "cohort state": 28 * clients * (p_model + p_aux) / gib,
+        "global model + aux heads": 4 * (p_model + tiering.n_tiers(cfg) * p_aux) / gib,
+        "logits": 4 * 2 * clients * batch * LLM_SEQ * cfg.padded_vocab / gib,
+        "Adam temporaries": 5 * 4 * clients * largest / gib,
+    }
+    return {"params a client": p_model + p_aux, "parts": parts, "total": sum(parts.values())}
+
+
+def _kernel_counts() -> dict:
+    from repro_torch.kernels import dcor
+
+    return {**_k3_k4_counts(), "pairwise_dist_forward": dcor.LAUNCHES["forward"],
+            "pairwise_dist_backward": dcor.LAUNCHES["backward"]}
+
+
+def _moe_routes(params, cfg, batch: dict, device: str) -> tuple[list, "torch.Tensor"]:
+    """One model's forward (no client axis in ``params`` or ``batch``) on
+    ``device``, with the router read through a wrapper around
+    ``models/moe.py::route``: each MoE layer's (probabilities, top-k
+    probabilities, top-k experts, queue positions), in layer order, and the
+    model's load-balance loss (the sum over layers, ``moe_aux``)."""
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.tree import tree_map
+
+    from repro_torch.models import transformer as tfm
+
+    real, seen = moe.route, []
+    moe.route = lambda x, p, c: seen.append(real(x, p, c)) or seen[-1]
+    try:
+        with torch.no_grad():
+            _, aux = M.forward(tree_map(lambda t: t[None].to(device), params), cfg,
+                               {k: v[None].to(device) for k, v in batch.items()})
+    finally:
+        moe.route = real
+    n_moe = cfg.n_layers if tfm.block_kind(cfg) == "moe" else 0
+    if len(seen) != n_moe:
+        fail(f"read {len(seen)} routes from {n_moe} MoE layers: moe_apply no longer routes "
+             f"through models/moe.py::route")
+    return seen, aux[0]
+
+
+def _moe_layer_stats(trainer, batch: dict) -> tuple[list[float], float]:
+    """The global model on one client's batch: each MoE layer's share of
+    dropped (token, k) assignments, and ``moe_aux``."""
+    from repro_torch.models import moe
+
+    cfg = trainer.adapter.cfg
+    routes, aux = _moe_routes(trainer.params, cfg, batch, "cuda")
+    return [float((pos >= moe.capacity(pos.shape[2], cfg)).float().mean())
+            for *_, pos in routes], float(aux)
+
+
+def _check_launched(label: str) -> dict:
+    """Every shape at which K2, K3 and K4 launched since their ``SHAPES``
+    were cleared, held against the plain versions as phases K2 and K3/K4
+    hold their cases. Returns the max |diff| of each kernel, forward and
+    backward."""
+    import torch
+
+    from repro_torch.kernels import dcor
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_xent as fx
+
+    g = torch.Generator(device="cuda").manual_seed(10)
+    err = {f"{k}_{d}": 0.0 for k in ("pairwise_dist", "flash_attention", "fused_xent")
+           for d in ("forward", "backward")}
+    what = f"{label}, as launched"
+    for shape in sorted(dcor.SHAPES):
+        _merge_err(err, "pairwise_dist", *_check_k2(what, shape, g))
+    for shape in sorted(fa.SHAPES, key=str):
+        _merge_err(err, "flash_attention", *_check_k4(what, *shape, g))
+    for T, V, dtype in sorted(fx.SHAPES, key=str):
+        _merge_err(err, "fused_xent", *_check_k3(what, T, V, dtype, g))
+    return err
+
+
+def phase_llm_run(label: str) -> dict:
+    """One LLM run at full width (``LLM_RUNS``): its memory reckoned before
+    it starts and measured after; per round wall, clock, tiers, uplink
+    bytes and kernel launches (every round must launch K3 and K4 forward
+    and backward, and K2 both ways with dcor); for MoE also each layer's
+    share of dropped assignments and ``moe_aux``; every parameter and aux
+    head finite and of its shape. Then, with the trainer freed, each K2,
+    K3 and K4 shape that the run launched is held against its plain
+    version (``_check_launched``); returns the max |diff| of each."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import dcor
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_xent as fx
+
+    arch, n_layers, n_modules, clients, batch, n_rounds, alpha = LLM_RUNS[label]
+    want = _llm_reckoning(arch, n_layers, n_modules, clients, batch)
+    print(f"[llm] {label}: {n_layers} layers in {n_modules} modules, {clients} clients, batch "
+          f"{batch} x {LLM_SEQ}, {n_rounds} rounds, dcor_alpha {alpha}; "
+          f"{want['params a client'] / 1e6:.1f}M parameters a client (aux head included); "
+          f"memory reckoned {want['total']:.2f} GiB ("
+          + ", ".join(f"{k} {v:.2f}" for k, v in want["parts"].items()) + ")")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer, eval_batch = _llm_trainer(arch, n_layers, n_modules, clients, batch, alpha)
+    build_s = time.perf_counter() - t0
+    moe_family = trainer.adapter.cfg.family == "moe"
+    first = {k: torch.from_numpy(v) for k, v in next(trainer.clients[0].dataset.epoch(0)).items()}
+    rows, shapes = [], {}
+
+    def on_round(tr, log):
+        if not shapes:
+            shapes.update(_check_trees_finite(tr))
+        else:
+            _check_trees_finite(tr, shapes)
+        counts = _kernel_counts()
+        stats = _moe_layer_stats(tr, first) if moe_family else None
+        rows.append((log, counts, _kernel_counts(), stats))
+
+    fx.LAUNCHES.update(forward=0, backward=0)
+    fa.LAUNCHES.update(forward=0, backward=0)
+    dcor.LAUNCHES.update(forward=0, backward=0)
+    for shapes_launched in (fx.SHAPES, fa.SHAPES, dcor.SHAPES):
+        shapes_launched.clear()
+    logs = trainer.run(n_rounds, eval_batch, on_round=on_round)
+    peak = torch.cuda.max_memory_allocated() / 2**30, torch.cuda.max_memory_reserved() / 2**30
+    if len(logs) != n_rounds or len(rows) != n_rounds:
+        fail(f"{label} run: expected {n_rounds} rounds, got {len(logs)}")
+    need = ["fused_xent_forward", "fused_xent_backward", "flash_attention_forward",
+            "flash_attention_backward"]
+    if alpha > 0:
+        need += ["pairwise_dist_forward", "pairwise_dist_backward"]
+    base = dict.fromkeys(rows[0][1], 0)
+    for log, counts, after, stats in rows:
+        got = {k: counts[k] - base[k] for k in counts}
+        if min(got[k] for k in need) <= 0:
+            fail(f"{label} run round {log.round} launched no kernel of {got}")
+        print(f"[llm] {label} round {log.round}: wall {log.wall_s:.3f} s, sim clock "
+              f"{log.clock:.4f} s, uplink_bytes {log.uplink_bytes:.0f}, tiers "
+              f"{sorted(set(log.assignment.values()))}, acc {log.acc:.4f}, launches K3 "
+              f"{got['fused_xent_forward']} / {got['fused_xent_backward']}, K4 "
+              f"{got['flash_attention_forward']} / {got['flash_attention_backward']}, K2 "
+              f"{got['pairwise_dist_forward']} / {got['pairwise_dist_backward']} "
+              "(forward / backward)"
+              + ("" if stats is None else
+                 ", dropped assignments by layer "
+                 + ", ".join(f"{x:.2%}" for x in stats[0]) + f", moe_aux {stats[1]:.4f}"))
+        if stats is not None and not np.isfinite(stats[1]):
+            fail(f"{label} run: moe_aux is not finite")
+        base = after
+    print(f"[llm] {label}: memory reckoned {want['total']:.2f} GiB, measured peak allocated "
+          f"{peak[0]:.3f} GiB (reserved {peak[1]:.3f} GiB); trainer built in {build_s:.1f} s")
+    print(f"[llm] {label}: launched K2 at {sorted(dcor.SHAPES)}, K3 at "
+          f"{sorted((T, V) for T, V, _ in fx.SHAPES)}, K4 (N, S, H, KV, hd) at "
+          f"{sorted(sh[:5] for sh in fa.SHAPES)}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return _check_launched(label)
+
+
+# the reduced MoE configs in bf16 spread further than the dense ones: a
+# route flipped at a near-tie moves a token's whole expert update. The card
+# read max 0.469 / 0.426 U, 99th percentile 0.137 / 0.155 U, median 0.0054 /
+# 0.0066 U on deepseek-moe-16b / llama4-scout (H100 80GB HBM3, 700 W); the
+# JAX package against itself from weights moved by one ulp reads 0.44 /
+# 0.14 / 0.0054 U on deepseek-moe-16b (tests/test_torch_llm_configs.py,
+# test_three_rounds_bf16_moe_within_the_jax_package_own_spread). Held as
+# the xLSTM's: max 1 U, 99th percentile 0.3 U, median 0.01 U.
+MOE_REFERENCE_BOUNDS = (1.0, 0.3, 0.01)
+
+
+def phase_llm_reference(arch: str, extra: list[str]) -> None:
+    """The reduced ``arch`` through the CLI on the card and on the CPU
+    (``phase_small_reference``; an MoE config within MOE_REFERENCE_BOUNDS);
+    for an MoE config also the count of routes (each token's top-k experts,
+    every layer) that differ when the CPU run's final model routes client
+    0's first batch on the card and on the CPU."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    argv = ["--arch", arch, "--clients", "4", "--batch-size", "4", "--seq-len", "64",
+            "--rounds", "3"] + extra
+    moe_family = get_config(arch).family == "moe"
+    gtr, ctr = phase_small_reference(argv, " ".join([arch] + extra),
+                                     MOE_REFERENCE_BOUNDS if moe_family else (0.5, 0.1, 0.01))
+    if not moe_family:
+        return
+    batch = {k: torch.from_numpy(v) for k, v in next(ctr.clients[0].dataset.epoch(0)).items()}
+    routes = {device: [topi.cpu() for _, _, topi, _ in
+                       _moe_routes(ctr.params, ctr.adapter.cfg, batch, device)[0]]
+              for device in ("cuda", "cpu")}
+    differ = sum(int((a != b).sum()) for a, b in zip(routes["cuda"], routes["cpu"]))
+    total = sum(a.numel() for a in routes["cpu"])
+    print(f"[reference]   {arch}: routes of the CPU run's final model on client 0's first "
+          f"batch, card against CPU: {differ} of {total} (token, k) choices differ")
+
+
+def _profile_with_ops(fn):
+    """``fn()`` under torch.profiler with host and device activity and input
+    shapes: (fn's result, kernel totals, the profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        out = fn()
+    return out, _kernel_totals(prof), prof
+
+
+def phase_llm_times_and_moe_profile() -> None:
+    """K4 at deepseek-moe-16b's heads (8, 512, 16/16, 128) and K3 at
+    granite's (8,192, 49,155) and deepseek's (4,096, 102,400) vocabularies,
+    timed as phase 11 does; then torch.profiler over two rounds of the MoE
+    run: the device busy share, K3's and K4's shares, the share of the
+    dispatch and combine einsums (every ``aten::bmm``, forward or backward,
+    over the group's E x capacity expert slots), the top kernels and the
+    top operators (self device time, input shapes). Printed only."""
+    import gc
+
+    import torch
+
+    from repro_torch.models import moe
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    _print_times("flash_attention", "(8, 512, 16/16, 128) bf16 causal",
+                 _k4_times(8, 512, 16, 16, 128, g))
+    for T, V in ((8_192, 49_155), (4_096, 102_400)):
+        _print_times("fused_xent", f"({T}, {V}) bf16", _k3_times(T, V, g))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch, n_layers, n_modules, clients, batch, _, alpha = LLM_RUNS["deepseek-moe-16b"]
+    trainer, eval_batch = _llm_trainer(arch, n_layers, n_modules, clients, batch, alpha)
+    cfg = trainer.adapter.cfg
+    G, Tg = moe.group_shape(batch * LLM_SEQ)
+    slots = cfg.n_experts * moe.capacity(Tg, cfg)
+    logs, totals, prof = _profile_with_ops(lambda: trainer.run(2, eval_batch))
+    busy = sum(t for _, t in totals.values())
+    if not busy:
+        print("[profile] MoE run: no device time in the trace (not measured)")
+        return
+    wall = sum(log.wall_s for log in logs)
+    einsum_s, einsum_n = 0.0, 0
+    for ev in prof.key_averages(group_by_input_shape=True):
+        dims = [d for shape in ev.input_shapes for d in shape]
+        if ev.key == "aten::bmm" and slots in dims and clients * G in dims:
+            einsum_s += ev.device_time_total / 1e6
+            einsum_n += ev.count
+    k3, k4 = _named(totals, K3_KERNELS)[1], _named(totals, K4_KERNELS)[1]
+    print(f"[profile] MoE run (deepseek-moe-16b), rounds 0-1 under the profiler: wall "
+          f"{wall:.3f} s, device busy {busy:.3f} s ({busy / wall:.1%} of wall), K3 {k3:.4f} s "
+          f"({k3 / busy:.2%} of device time), K4 {k4:.4f} s ({k4 / busy:.2%}), dispatch and "
+          f"combine einsums {einsum_s:.4f} s ({einsum_s / busy:.2%}; {einsum_n} bmm calls over "
+          f"{slots} expert slots a group), {sum(n for n, _ in totals.values())} device "
+          "activities")
+    for key, (n, t) in sorted(totals.items(), key=lambda kv: -kv[1][1])[:10]:
+        print(f"[profile]   {t:.4f} s  {n:6d} x  {key[:90]}")
+    # the same device time by the operator that launched it, with its shapes
+    ops = sorted((ev for ev in prof.key_averages(group_by_input_shape=True)
+                  if ev.self_device_time_total > 0), key=lambda ev: -ev.self_device_time_total)
+    for ev in ops[:10]:
+        print(f"[profile]   {ev.self_device_time_total / 1e6:.4f} s  {ev.count:6d} x  op "
+              f"{ev.key} {str(ev.input_shapes)[:100]}")
+
+
 def main() -> None:
     t0 = time.perf_counter()
     smi = phase_device()
@@ -2257,7 +2703,7 @@ def main() -> None:
     # up; for the two big runs their peak allocated (53.7, 66.3 GiB) plus room
     entry = _phase("K1", 1, phase_kernels)
     k2_err = _phase("K2", 1, phase_k2)
-    k34_err = _phase("K3/K4", 10, phase_k3_k4)
+    k34_err = _phase("K3/K4", 16, phase_k3_k4)
     k5_err = _phase("K5", 4, phase_k5)
     k1_launches, dtfl_clock = _phase("main path", 7, phase_main_path)
     k2_launches = _phase("dcor run", 5, phase_dcor_run)
@@ -2275,6 +2721,18 @@ def main() -> None:
     # 99th percentile to 0.3 U, the median to the default 0.01 U
     _phase("xLSTM reference", 1, partial(phase_small_reference, bounds=(1.0, 0.3, 0.01)),
            XLSTM_SMALL, "xLSTM token-LM")
+    # the LLM configs; each run's need is its reckoning rounded up (an upper
+    # bound of what the cohort holds; activations come on top)
+    for label, need in (("granite-3-2b + dcor", 71), ("yi-6b", 76), ("deepseek-moe-16b", 63)):
+        err = _phase(f"{label} run", need, phase_llm_run, label)
+        for name in k34_err:
+            k34_err[name] = max(k34_err[name], err[name])
+        k2_err = (max(k2_err[0], err["pairwise_dist_forward"]),
+                  max(k2_err[1], err["pairwise_dist_backward"]))
+    for arch in LLM_ARCHS:
+        _phase(f"{arch} reference", 1, phase_llm_reference, arch, [])
+    _phase("granite-3-2b dcor reference", 1, phase_llm_reference, "granite-3-2b",
+           ["--dcor-alpha", "0.5"])
     _phase("population run", 11, phase_population_run)
     _phase("pairing loop run", 2, phase_pairing_loop_run)
     _phase("events run", 7, phase_events_run)
@@ -2322,6 +2780,7 @@ def main() -> None:
            TRANSFORMER_ARGV, {"K3": K3_KERNELS, "K4": K4_KERNELS})
     _phase("xLSTM profile", 72, phase_rounds_profile, "xLSTM run", XLSTM_ARGV,
            {"K5": MLSTM_KERNELS, "K3": K3_KERNELS})
+    _phase("LLM times and MoE profile", 63, phase_llm_times_and_moe_profile)
 
     import torch
 

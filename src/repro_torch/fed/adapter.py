@@ -8,8 +8,9 @@ eval, and the per-tier cost table used by the time simulator and the
 scheduler's profiling. ``split`` takes one model (the global tree);
 ``merge`` takes a cohort's halves, whose leaves carry the leading client
 axis, as do the losses and activations: ``client_loss`` and ``full_loss``
-return a (C,) loss per client. For the ResNet, ``dcor_alpha > 0`` adds the §4.4
-distance-correlation regularizer (``privacy.dcor``, on kernel K2);
+return a (C,) loss per client. ``dcor_alpha > 0`` adds the §4.4
+distance-correlation regularizer (``privacy.dcor``, on kernel K2) to the
+client loss of either adapter; for the ResNet,
 ``patch_shuffle`` shuffles the uploaded ``z`` only when a generator is
 passed, which the DTFL step does not do, as in the JAX package
 (``repro/fed/dtfl.py:133``).
@@ -114,15 +115,17 @@ class ResNetAdapter:
 
 
 class TransformerAdapter:
-    """The transformer archs: the dense family (SmolLM-360M) and the xLSTM
-    family (xLSTM-350M: mLSTM blocks on kernel K5, every ``slstm_every``-th
-    an sLSTM block, its ``is_slstm`` flags split and merged with the other
-    stacked leaves). ``moe_aux`` is 0 for both; the ``+ 0.01 * moe_aux``
-    term is kept for the MoE family to come."""
+    """The transformer archs: the dense family (SmolLM-360M, granite-3-2b,
+    yi-6b, deepseek-67b), the MoE family (deepseek-moe-16b, llama4-scout;
+    each loss adds ``0.01 * moe_aux``, the blocks' load-balance loss, (C,))
+    and the xLSTM family (xLSTM-350M: mLSTM blocks on kernel K5, every
+    ``slstm_every``-th an sLSTM block, its ``is_slstm`` flags split and
+    merged with the other stacked leaves). ``dcor_alpha > 0`` adds the §4.4
+    regularizer to the client loss, between the embedded tokens and the
+    uploaded activations (``privacy.dcor``, on kernel K2), as
+    ``repro/fed/adapter.py:157-162``."""
 
     def __init__(self, cfg, *, seq_len: int, cost_cfg=None, dcor_alpha: float = 0.0):
-        if dcor_alpha > 0.0:
-            raise NotImplementedError("dcor_alpha > 0 on a transformer is not yet ported")
         # DTFL split training unties embeddings: the halves live on
         # different hosts.
         self.cfg = cfg.replace(tie_embeddings=False)
@@ -152,6 +155,9 @@ class TransformerAdapter:
         z, moe_aux = M.client_forward(cp, self.cfg, batch)
         logits = M.aux_head_apply(ap, self.cfg, z)
         loss = token_xent(logits, batch["labels"], batch.get("mask")) + 0.01 * moe_aux
+        if self.dcor_alpha > 0.0:
+            x_in = M.embed_tokens(cp, self.cfg, batch)
+            loss = (1 - self.dcor_alpha) * loss + self.dcor_alpha * privacy.dcor(x_in, z)
         return loss, z
 
     def server_loss(self, sp: Params, z: torch.Tensor, batch: dict, tier: int):

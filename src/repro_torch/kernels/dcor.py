@@ -16,7 +16,8 @@ one per forward (the Gram of the upper triangle, split over F, with its
 last block summing the splits and applying the distance epilogue), one per
 backward, and one more forward launch whenever the forward's counter
 buffer is allocated and zeroed (once per device, more only for a larger
-grid).
+grid). ``SHAPES`` holds each forward launch's (C, B, F); a backward runs at
+its forward's.
 
 The forward's counters are shared by its launches on a device, and each
 launch leaves them zero: the port runs K2 on one stream at a time.
@@ -32,6 +33,7 @@ from repro_torch.kernels import nvcc
 from repro_torch.kernels.ref import pairwise_dist_bwd_ref, pairwise_dist_ref
 
 LAUNCHES = {"forward": 0, "backward": 0}
+SHAPES: set[tuple] = set()
 _LIB: ctypes.CDLL | None = None
 
 MAX_B = 255 * 32          # kMaxB in the source
@@ -181,6 +183,7 @@ def dist_forward(x: torch.Tensor) -> torch.Tensor:
                                         plan.splits, stream)
     _raise_on(err, "forward")
     LAUNCHES["forward"] += 1  # pdist_fwd
+    SHAPES.add((C, B, F))
     return out
 
 

@@ -17,7 +17,8 @@ w.r.t. q, k and v. A CUDA tensor goes to the hand-written kernels
 goes to the plain versions ``kernels/ref.py::attention_ref`` and
 ``attention_bwd_ref``. Anything else raises. ``LAUNCHES`` counts kernel
 launches on the device: one per forward; two per backward (dQ with the
-row terms D, then dK and dV).
+row terms D, then dK and dV). ``SHAPES`` holds each forward launch's
+(N, S, H, KV, hd, causal, window, dtype); a backward runs at its forward's.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from repro_torch.kernels import nvcc
 from repro_torch.kernels.ref import attention_bwd_ref, attention_ref
 
 LAUNCHES = {"forward": 0, "backward": 0}
+SHAPES: set[tuple] = set()
 _LIB: ctypes.CDLL | None = None
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 128
@@ -109,6 +111,7 @@ def attn_forward(q, k, v, *, causal: bool, window: int = 0) -> tuple[torch.Tenso
             int(q.dtype == torch.bfloat16), stream)
     _raise_on(err, "forward")
     LAUNCHES["forward"] += 1  # flash_fwd
+    SHAPES.add((N, S, H, k.shape[2], hd, causal, window, q.dtype))
     return o, lse
 
 

@@ -13,7 +13,8 @@ the kernel). A CUDA tensor goes to the hand-written kernels
 (``csrc/fused_xent.cu``, built by ``nvcc`` at first use); a CPU tensor goes
 to the plain versions ``kernels/ref.py::fused_xent_ref`` and
 ``fused_xent_bwd_ref``. Anything else raises. ``LAUNCHES`` counts kernel
-launches on the device: one per forward, one per backward.
+launches on the device: one per forward, one per backward. ``SHAPES``
+holds each forward launch's (T, V, dtype); a backward runs at its forward's.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from repro_torch.kernels import nvcc
 from repro_torch.kernels.ref import fused_xent_bwd_ref, fused_xent_ref
 
 LAUNCHES = {"forward": 0, "backward": 0}
+SHAPES: set[tuple] = set()
 _LIB: ctypes.CDLL | None = None
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -88,6 +90,7 @@ def xent_forward(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Tens
                                      stream)
     _raise_on(err, "forward")
     LAUNCHES["forward"] += 1  # xent_fwd
+    SHAPES.add((T, V, logits.dtype))
     return loss, lse
 
 

@@ -144,11 +144,28 @@ def mlp_param_init(gen, d: int, f: int, *, lead: tuple = (), device="cpu") -> Pa
     }
 
 
+class _Silu(torch.autograd.Function):
+    """``jax.nn.silu`` forward and backward in the JAX package's op order,
+    each step rounded to x's dtype: s = 1 / (1 + exp(-x)), y = x * s, and
+    the gradient g * s + (g * x) * (s * (1 - s)), the transpose of
+    ``x * logistic(x)``. PyTorch's fused silu rounds once, and autograd of
+    the forward's ops rounds a chain of its own: in bf16 both give other
+    bits, the latter in most elements of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1.0 / (1.0 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        return g * s + (g * x) * (s * (1.0 - s))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu``'s op order, ``x * (1 / (1 + exp(-x)))``, each step
-    rounded to x's dtype. PyTorch's fused silu rounds once, and in bf16 gives
-    other bits for some values."""
-    return x * (1.0 / (1.0 + torch.exp(-x)))
+    return _Silu.apply(x)
 
 
 def mlp_apply(x: torch.Tensor, p: Params, cfg) -> torch.Tensor:

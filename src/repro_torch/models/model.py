@@ -1,6 +1,6 @@
 """Public model API of the transformer (pair: ``repro/models/model.py:1``).
 
-Dense and xLSTM families. The parameter tree keeps the JAX package's keys, with
+Dense, MoE and xLSTM families. The parameter tree keeps the JAX package's keys, with
 the blocks stacked on a layer axis so a DTFL tier splits it by slicing
 (``core/tiering.py``)::
 
@@ -13,8 +13,9 @@ the blocks stacked on a layer axis so a DTFL tier splits it by slicing
 
 ``init`` returns one model (no client axis); every apply function takes a
 leading client axis C on the parameters and on the batch: tokens (C, B, S)
-int32. ``count_params_analytic`` counts the shapes of ``init`` built on the
-meta device.
+int32, and the MoE load-balance loss they return is (C,), one per client
+(0.0 for the families without one). ``count_params_analytic`` counts the
+shapes of ``init`` built on the meta device.
 """
 from __future__ import annotations
 
@@ -65,21 +66,24 @@ def lm_logits(params: Params, cfg, x: torch.Tensor) -> torch.Tensor:
     return _vocab_mask(cfg, client_mm(h, w.to(dt)))
 
 
-def forward(params: Params, cfg, batch: dict) -> tuple[torch.Tensor, float]:
-    """Returns (logits (C, B, S, V) compute-dtype, moe_aux_loss)."""
+def forward(params: Params, cfg, batch: dict) -> tuple[torch.Tensor, "torch.Tensor | float"]:
+    """Returns (logits (C, B, S, V) compute-dtype, moe_aux_loss (C,))."""
     x = embed_tokens(params, cfg, batch)
     x, aux = tfm.stack_apply(x, params["blocks"], cfg)
     return lm_logits(params, cfg, x), aux
 
 
-def client_forward(client_params: Params, cfg, batch: dict) -> tuple[torch.Tensor, float]:
-    """Embed + the client's blocks. Returns (z, moe_aux)."""
+def client_forward(client_params: Params, cfg, batch: dict
+                   ) -> tuple[torch.Tensor, "torch.Tensor | float"]:
+    """Embed + the client's blocks. Returns (z, moe_aux (C,))."""
     x = embed_tokens(client_params, cfg, batch)
     return tfm.stack_apply(x, client_params["blocks"], cfg)
 
 
-def server_forward(server_params: Params, cfg, z: torch.Tensor) -> tuple[torch.Tensor, float]:
-    """The remaining blocks + head on the received activations."""
+def server_forward(server_params: Params, cfg, z: torch.Tensor
+                   ) -> tuple[torch.Tensor, "torch.Tensor | float"]:
+    """The remaining blocks + head on the received activations. Returns
+    (logits, moe_aux (C,))."""
     x, aux = tfm.stack_apply(z, server_params["blocks"], cfg)
     return lm_logits(server_params, cfg, x), aux
 
@@ -102,9 +106,14 @@ def aux_head_apply(aux_params: Params, cfg, z: torch.Tensor) -> torch.Tensor:
 def count_params_analytic(cfg, active_only: bool = False) -> int:
     """Parameter count of ``init`` (shapes on the meta device). Active
     parameters as ``repro/models/model.py:212-227``: a dense model's are
-    its total; an xLSTM stack holds both cells in every layer and uses one,
-    so the unused cell of each layer is taken off."""
+    its total; an MoE layer uses ``top_k`` of its routed experts, so the
+    other experts' three matrices are taken off; an xLSTM stack holds both
+    cells in every layer and uses one, so the unused cell of each layer is
+    taken off."""
     total = _tree_size(init(None, cfg, device="meta"))
+    if active_only and cfg.family == "moe":
+        per_expert = 3 * cfg.d_model * cfg.d_ff
+        total -= (cfg.n_experts - cfg.top_k) * cfg.n_layers * per_expert
     if active_only and cfg.family == "ssm" and cfg.slstm_every:
         n_sl = sum(1 for i in range(cfg.n_layers) if i % cfg.slstm_every == cfg.slstm_every - 1)
         block = tfm.block_init(None, cfg, device="meta")

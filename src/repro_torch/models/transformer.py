@@ -1,20 +1,24 @@
 """Transformer blocks and the stacked layer run (pair: ``repro/models/transformer.py:1``).
 
-Two block kinds so far:
-  dense : GQA attention + SwiGLU MLP (SmolLM-360M);
+Three block kinds so far:
+  dense : GQA attention + SwiGLU MLP (SmolLM-360M, granite-3-2b, yi-6b,
+          deepseek-67b);
+  moe   : GQA attention + the shared and routed top-k MoE FFN
+          (deepseek-moe-16b, llama4-scout; ``models/moe.py``);
   ssm   : the xLSTM block, an mLSTM or an sLSTM cell chosen per layer by
           the float leaf ``is_slstm`` (xLSTM-350M).
 Layer parameters are stacked on a layer axis, which is axis 1 behind the
 client axis (C, L, ...); a DTFL tier is a slice of that axis
 (``core/tiering.py``). ``stack_apply`` loops over it (the JAX package scans
 it, with remat; at the sizes the port trains, the activations of every
-layer fit). The MoE, hybrid and encoder-decoder families raise "not yet
+layer fit). The hybrid and encoder-decoder families raise "not yet
 ported".
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (Params, attn_apply, attn_param_init,
                                        mlp_apply, mlp_param_init, rmsnorm)
@@ -22,8 +26,8 @@ from repro_torch.tree import tree_map
 
 
 def block_kind(cfg) -> str:
-    """The block kind of a config's family (``dense`` or ``ssm``)."""
-    if cfg.family not in ("dense", "ssm"):
+    """The block kind of a config's family (``dense``, ``moe`` or ``ssm``)."""
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(f"family {cfg.family!r} is not yet ported")
     return cfg.family
 
@@ -36,12 +40,16 @@ def block_init(gen, cfg, *, lead: tuple = (), device="cpu") -> Params:
             "mlstm": ssm_lib.mlstm_param_init(gen, cfg, lead=lead, device=device),
             "slstm": ssm_lib.slstm_param_init(gen, cfg, lead=lead, device=device),
         }
-    return {
+    block = {
         "ln1": torch.ones(lead + (d,), device=device),
         "attn": attn_param_init(gen, cfg, lead=lead, device=device),
         "ln2": torch.ones(lead + (d,), device=device),
-        "mlp": mlp_param_init(gen, d, cfg.d_ff, lead=lead, device=device),
     }
+    if block_kind(cfg) == "moe":
+        block["moe"] = moe_lib.moe_param_init(gen, cfg, lead=lead, device=device)
+    else:
+        block["mlp"] = mlp_param_init(gen, d, cfg.d_ff, lead=lead, device=device)
+    return block
 
 
 def stack_init(gen, cfg, n_layers: int, *, device="cpu") -> Params:
@@ -61,6 +69,13 @@ def block_apply(x: torch.Tensor, bp: Params, cfg) -> torch.Tensor:
     return x + mlp_apply(rmsnorm(x, bp["ln2"], cfg.norm_eps), bp["mlp"], cfg)
 
 
+def moe_block_apply(x: torch.Tensor, bp: Params, cfg) -> tuple[torch.Tensor, torch.Tensor]:
+    """An MoE block; returns (x, the layer's load-balance loss (C,))."""
+    x = x + attn_apply(rmsnorm(x, bp["ln1"], cfg.norm_eps), bp["attn"], cfg, causal=True)
+    y, aux = moe_lib.moe_apply(rmsnorm(x, bp["ln2"], cfg.norm_eps), bp["moe"], cfg)
+    return x + y, aux
+
+
 def ssm_block_apply(x: torch.Tensor, bp: Params, cfg, slstm: bool) -> torch.Tensor:
     """An xLSTM block: the flagged cell only, so the other cell's leaves
     get no gradient (the trainer gives them exact zeros, as the JAX
@@ -70,13 +85,22 @@ def ssm_block_apply(x: torch.Tensor, bp: Params, cfg, slstm: bool) -> torch.Tens
     return ssm_lib.mlstm_apply(x, bp["mlstm"], cfg)
 
 
-def stack_apply(x: torch.Tensor, stacked: Params, cfg) -> tuple[torch.Tensor, float]:
+def stack_apply(x: torch.Tensor, stacked: Params, cfg
+                ) -> tuple[torch.Tensor, "torch.Tensor | float"]:
     """Run x through the stacked blocks (leaves (C, L, ...)). Returns
-    (x, moe_aux_loss); the latter is 0 for dense and xLSTM blocks."""
-    if block_kind(cfg) == "dense":
+    (x, moe_aux_loss): for MoE blocks the sum over layers of each client's
+    load-balance loss, (C,); 0.0 for dense and xLSTM blocks, which have none."""
+    kind = block_kind(cfg)
+    if kind in ("dense", "moe"):
+        aux = 0.0
         for layer in range(stacked["ln1"].shape[1]):
-            x = block_apply(x, tree_map(lambda t: t[:, layer], stacked), cfg)
-        return x, 0.0
+            bp = tree_map(lambda t: t[:, layer], stacked)
+            if kind == "dense":
+                x = block_apply(x, bp, cfg)
+            else:
+                x, layer_aux = moe_block_apply(x, bp, cfg)
+                aux = aux + layer_aux
+        return x, aux
     n_layers = stacked["mlstm"]["ln"].shape[1]
     flags = [False] * n_layers
     if "is_slstm" in stacked:

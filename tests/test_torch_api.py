@@ -17,6 +17,7 @@ package's.
   * A component the port does not have yet is registered, its spec
     validates and hashes, and building it raises "not yet ported".
 """
+import dataclasses
 import json
 
 import numpy as np
@@ -28,7 +29,7 @@ from repro import presets as jpresets
 from repro import registry as jregistry
 from repro.launch import train as jtrain
 from repro_torch import presets, registry
-from repro_torch.api import ExperimentSpec, SpecError
+from repro_torch.api import ExecSpec, ExperimentSpec, SpecError
 from repro_torch.launch import train as ttrain
 from repro_torch.tree import tree_leaves
 
@@ -150,8 +151,7 @@ def test_registries_match_jax():
 
 def test_unported_components_are_registered_and_refused():
     unported = {"trainers": [],
-                "archs": [n for n in registry.ASSIGNED_ARCH_NAMES
-                          if n not in ("smollm-360m", "xlstm-350m")],
+                "archs": ["whisper-base", "pixtral-12b", "hymba-1.5b"],
                 "exec_modes": ["sharded"]}
     for name, names in unported.items():
         reg = getattr(registry, name)
@@ -159,8 +159,10 @@ def test_unported_components_are_registered_and_refused():
         for n in names:
             with pytest.raises(NotImplementedError, match="not yet ported"):
                 reg.load(n) if name == "trainers" else reg.build(n)
-    for spec in (presets.llm("yi-6b"), presets.llm("granite-3-2b"),
-                 presets.llm("deepseek-67b"), presets.table4_wall(exec_mode="sharded", devices=2),
+    for spec in (presets.llm("whisper-base"), presets.llm("pixtral-12b"),
+                 dataclasses.replace(presets.llm("granite-3-2b"),
+                                     exec=ExecSpec(mode="sharded", devices=2)),
+                 presets.table4_wall(exec_mode="sharded", devices=2),
                  presets.llm("hymba-1.5b"), presets.table4_wall(devices=2)):
         assert spec.spec_hash() == japi.ExperimentSpec.from_json(spec.to_json()).spec_hash()
         with pytest.raises(NotImplementedError, match="not yet ported"):

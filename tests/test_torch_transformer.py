@@ -71,7 +71,7 @@ def test_config_matches_jax():
     assert vars(CFG) == vars(JCFG)
     assert (CFG.resolved_head_dim, CFG.padded_vocab) == (JCFG.resolved_head_dim, JCFG.padded_vocab)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_config("deepseek-moe-16b")
+        get_config("pixtral-12b")
 
 
 @pytest.mark.parametrize("n_layers,n_modules", [(6, 4), (32, 8), (2, 2), (2, 8), (12, 8),
