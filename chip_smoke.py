@@ -5,6 +5,11 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --k3 [SRC]`` runs K3 alone from the port under SRC
+(this checkout's ``src`` by default): its build report, its cases against
+the plain versions and its timed rows (``k3_alone``); run on two checkouts
+in turns within one call, it compares them on one card.
+
 Phases (any failure exits non-zero and prints no result line):
   1. device: require CUDA; print the card's name and power limit as
      ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
@@ -16,7 +21,10 @@ Phases (any failure exits non-zero and prints no result line):
      the forward's blocks an SM must be kernels/dcor.py's) and per K4
      kernel: registers, shared memory and spills (ptxas) and HMMA
      instructions (``cuobjdump -sass``). Every bf16 K4 kernel must have
-     HMMA, and the hd-64 ones, the path's, must spill nothing. The same for K5: every kernel with
+     HMMA, and the hd-64 ones, the path's, must spill nothing. Per K3
+     kernel: registers, stack, spills and its main loop's static SASS
+     instructions per element streamed; none may have a stack frame. The
+     same for K5: every kernel with
      split-TF32 products must have ``HMMA.1688.F32.TF32`` (m16n8k8 TF32) and
      none may spill (one build serves every head dim up to 512).
   3. kernels: hold each kernel against its plain PyTorch version on the
@@ -31,8 +39,8 @@ Phases (any failure exits non-zero and prints no result line):
      ResNet-56 (6 blocks per stage, width 16, 32 px, 8 modules, 7 tiers),
      10 clients, 2000 samples, batch 32, 3 rounds, the int8 wire codec,
      the dynamic scheduler, Adam 1e-3. Launch counts are zeroed just before
-     and read after; every round must launch K1, and every parameter and
-     aux head must stay finite and keep its shape.
+     and read after (K1's and K3's); every round must launch K1, and every
+     parameter and aux head must stay finite and keep its shape.
   5. dcor run: the same entry point with Table 5's data and the
      distance-correlation regularizer — full-width ResNet-56, cifar10-noisy,
      5 IID clients, 1200 samples, batch 32, 3 rounds, ``--dcor-alpha 0.5``,
@@ -56,12 +64,14 @@ Phases (any failure exits non-zero and prints no result line):
      path's shapes, at ragged ones and at the full-width heads of the LLM
      configs (K4 at 8 sequences of 512 tokens: granite-3-2b 32/8 heads at
      hd 64, yi-6b 32/4, deepseek-67b 64/8, deepseek-moe-16b 16/16 and
-     llama4-scout 40/8 at hd 128; K3 in bf16 at (8,192, 49,155), granite's
-     odd vocab, whose rows are not 16-byte aligned, (2,048, 64,000),
-     (4,096, 102,400) and (2,048, 202,048)), K4's every shape in bf16 and fp32
-     (the absolute tolerances of tests/test_torch_kernels.py: K4 fp32 2e-5
-     forward and 1e-4 backward, bf16 rtol 2e-2 with atol 1e-2; K3 loss
-     2e-4); K4's backward must be bit-identical run to run. At the path's
+     llama4-scout 40/8 at hd 128; K3 in bf16 at (8,192, 49,155) and
+     (2,048, 49,155), granite's odd vocab, whose rows are not 16-byte
+     aligned, (2,048, 64,000), (4,096, 102,400) and (2,048, 202,048)), K4's
+     every shape in bf16 and fp32 (the absolute tolerances of
+     tests/test_torch_kernels.py: K4 fp32 2e-5 forward and 1e-4 backward,
+     bf16 rtol 2e-2 with atol 1e-2; K3 loss 2e-4, gradient rtol 1e-5 fp32
+     and 1e-2 bf16); K4's backward and both K3 kernels must be
+     bit-identical run to run. At the path's
      bf16 shape it also prints what K4's split of dS into bf16 hi + lo
      keeps against dS rounded to one bf16.
   9. transformer run: the same entry point on full-width SmolLM-360M (32
@@ -70,7 +80,10 @@ Phases (any failure exits non-zero and prints no result line):
      batch 4, sequence 512, 3 rounds, the token-LM task. K3 and K4 counts
      are zeroed just before and read after; every round must launch the
      forward and backward kernels of both, and every parameter and aux
-     head must stay finite and keep its shape.
+     head must stay finite and keep its shape. Then every shape K3
+     launched at is held against its plain version, as after the main
+     path (4), the dcor (5), xLSTM (13) and baselines (22) runs; the
+     errors join K3's ``max_abs_err``.
  10. the reduced SmolLM-360M on the card and on the CPU, as phase 6.
  11. K3 and K4 times as K2's, beside the bound (bytes over the memory
      rate, or bf16 products over the tensor-core rate) and one PyTorch
@@ -187,7 +200,10 @@ printed before each run beside its measured peak:
      configs the count of routes that differ when the CPU run's final model
      routes one batch on the card and on the CPU.
  28. (at the end) K4 at deepseek-moe-16b's heads (8, 512, 16/16, 128) and
-     K3 at (8,192, 49,155) and (4,096, 102,400), timed as phase 11; then
+     K3 at the rest of ``K3_TIMED`` (granite's (8,192, 49,155) and
+     (2,048, 49,155), deepseek's (4,096, 102,400) and (2,048, 102,400),
+     yi-6b's (2,048, 64,000) and (4,096, 64,000) in bf16, the ResNet's
+     classifier (320, 10) in fp32), timed as phase 11; then
      torch.profiler over two rounds of the MoE run (host and device
      activity, input shapes): the device busy share, K3's and K4's shares,
      the dispatch and combine einsums' share (every ``aten::bmm`` over the
@@ -329,6 +345,7 @@ def phase_build():
     for name in names:
         print(nvcc.library_path(name).with_suffix(".log").read_text().strip())
     k2_build_report()
+    k3_build_report()
     k4_build_report()
     k5_build_report()
 
@@ -355,21 +372,27 @@ def _ptxas_report(log: str) -> dict:
     return out
 
 
-def _hmma_counts(lib: Path, op: str = "HMMA") -> dict:
-    """{mangled kernel: number of instructions holding ``op``} in ``cuobjdump
-    -sass``."""
+def _sass(lib: Path) -> dict:
+    """{mangled function: [(address, instruction)]} from ``cuobjdump -sass``."""
+    import re
+
     from repro_torch.kernels import nvcc
 
     sass = subprocess.run([str(Path(nvcc.nvcc_path()).parent / "cuobjdump"), "-sass", str(lib)],
                           capture_output=True, text=True, check=True, timeout=300).stdout
-    counts, cur = {}, None
+    out, cur = {}, None
     for line in sass.splitlines():
         if "Function : " in line:
-            cur = line.split("Function : ", 1)[1].strip()
-            counts[cur] = 0
-        elif cur is not None and op in line:
-            counts[cur] += 1
-    return counts
+            cur = out.setdefault(line.split("Function : ", 1)[1].strip(), [])
+        elif cur is not None and (m := re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)):
+            cur.append((int(m.group(1), 16), m.group(2)))
+    return out
+
+
+def _hmma_counts(lib: Path, op: str = "HMMA") -> dict:
+    """{mangled kernel: number of instructions holding ``op``} in ``cuobjdump
+    -sass``."""
+    return {name: sum(op in ins for _, ins in code) for name, code in _sass(lib).items()}
 
 
 def k2_build_report() -> None:
@@ -410,6 +433,70 @@ def k2_build_report() -> None:
         if fwd[B] != dcor.BLOCKS_PER_SM[rows]:
             fail(f"K2 forward at B = {B}: {fwd[B]} blocks an SM, not the "
                  f"{dcor.BLOCKS_PER_SM[rows]} of kernels/dcor.py's BLOCKS_PER_SM")
+
+
+# the bytes one global load of each width brings
+LOAD_BYTES = {"128": 16, "64": 8, "U16": 2, "S16": 2, "U8": 1, "S8": 1}
+
+
+def _main_loop(code: list, elem_bytes: int) -> dict | None:
+    """The loop that streams the row: of the loops (a branch back to an
+    earlier address), the one whose body loads the most global bytes, the
+    shortest among equals. Its static instructions, the elements its loads
+    bring, and its MUFU.EX2, packed bf16 max (HMNMX2, VHMNMX) and global
+    loads; None without a loop that loads."""
+    import re
+
+    best = None
+    for addr, ins in code:
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", ins)
+        if m is None or int(m.group(1), 16) > addr:
+            continue
+        body = [i for a, i in code if int(m.group(1), 16) <= a <= addr]
+        # the opcodes of the loads (after any predicate), e.g. LDG.E.128.CONSTANT
+        loads = [op for op in (next(w for w in i.split() if not w.startswith("@"))
+                               for i in body) if op.startswith("LDG")]
+        nbytes = sum(next((LOAD_BYTES[w] for w in op.split(".") if w in LOAD_BYTES), 4)
+                     for op in loads)
+        key = (nbytes, -len(body))
+        if nbytes and (best is None or key > best[0]):
+            best = (key, {"instructions": len(body), "elements": nbytes // elem_bytes,
+                          "ex2": sum("MUFU.EX2" in i for i in body),
+                          "hmnmx": sum("HMNMX" in i for i in body), "loads": len(loads)})
+    return None if best is None else best[1]
+
+
+def k3_build_report() -> None:
+    """K3's kernels as built: registers, stack and spills (the ptxas
+    report) and the static SASS instructions of each kernel's main loop per
+    element it streams (``_main_loop``; a count, not a time: cold branches
+    inside the loop count too). Fails if a kernel has a stack frame: a
+    register array indexed at run time lives in local memory, 16-byte
+    spills in the streaming loop."""
+    import re
+
+    from repro_torch.kernels import nvcc
+
+    lib_path = nvcc.library_path("fused_xent")
+    ptxas = _ptxas_report(lib_path.with_suffix(".log").read_text())
+    for mangled, code in sorted(_sass(lib_path).items()):
+        m = re.search(r"(xent_(?:fwd|bwd))I(13__nv_bfloat16|f)(Lb([01])E)?", mangled)
+        if m is None:
+            continue
+        bf16 = m.group(2) != "f"
+        kind = f"{m.group(1)}<{'bf16' if bf16 else 'fp32'}" + (
+            "" if m.group(4) is None else f", vec {m.group(4)}") + ">"
+        info = ptxas.get(mangled, {})
+        loop = _main_loop(code, 2 if bf16 else 4)
+        text = "no loop that loads" if loop is None else (
+            f"main loop {loop['instructions']} instructions for {loop['elements']} elements "
+            f"({loop['instructions'] / loop['elements']:.2f} an element; {loop['ex2']} MUFU.EX2, "
+            f"{loop['hmnmx']} bf16x2 max, {loop['loads']} global loads)")
+        print(f"[build] K3 {kind}: {info.get('registers')} registers, {info.get('stack')} bytes "
+              f"of stack, spills {info.get('spill_stores')} / {info.get('spill_loads')} bytes "
+              f"(stores / loads), " + text)
+        if info.get("stack"):
+            fail(f"K3 {kind} has a stack frame of {info['stack']} bytes (local memory)")
 
 
 def k4_build_report() -> None:
@@ -832,7 +919,7 @@ def _check_trees_finite(trainer, shapes=None) -> dict:
 def phase_main_path() -> tuple[int, float]:
     import torch
 
-    from repro_torch.kernels import quantize
+    from repro_torch.kernels import fused_xent, quantize
     from repro_torch.launch import train
 
     argv = ["--arch", "resnet-56", "--full-size", "--clients", "10", "--samples", "2000",
@@ -850,8 +937,11 @@ def phase_main_path() -> tuple[int, float]:
 
     torch.cuda.reset_peak_memory_stats()
     quantize.LAUNCHES = 0
+    fused_xent.LAUNCHES.update(forward=0, backward=0)
+    fused_xent.SHAPES.clear()
     logs = train.main(argv, on_round=on_round)
     launches = quantize.LAUNCHES
+    k3 = dict(fused_xent.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
 
     if len(logs) != 3 or len(rounds) != 3:
@@ -866,7 +956,9 @@ def phase_main_path() -> tuple[int, float]:
               f"acc {log.acc:.4f}, int8_roundtrip launches {count - before}")
         before = count
     print(f"[main] peak device memory {peak / 2**30:.3f} GiB "
-          f"(torch.cuda.max_memory_allocated), int8_roundtrip launches {launches}")
+          f"(torch.cuda.max_memory_allocated), int8_roundtrip launches {launches}, "
+          f"fused_xent launches forward {k3['forward']} backward {k3['backward']}")
+    _check_k3_launched("main path")
     return launches, logs[-1].clock
 
 
@@ -875,7 +967,7 @@ def phase_dcor_run() -> tuple[int, int]:
     must launch the K2 forward and backward kernels."""
     import torch
 
-    from repro_torch.kernels import dcor
+    from repro_torch.kernels import dcor, fused_xent
     from repro_torch.launch import train
 
     argv = ["--arch", "resnet-56", "--full-size", "--dataset", "cifar10-noisy",
@@ -894,6 +986,7 @@ def phase_dcor_run() -> tuple[int, int]:
 
     torch.cuda.reset_peak_memory_stats()
     dcor.LAUNCHES.update(forward=0, backward=0)
+    fused_xent.SHAPES.clear()
     logs = train.main(argv, on_round=on_round)
     launches = dict(dcor.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
@@ -913,6 +1006,7 @@ def phase_dcor_run() -> tuple[int, int]:
     print(f"[dcor] peak device memory {peak / 2**30:.3f} GiB "
           f"(torch.cuda.max_memory_allocated), K2 launches forward "
           f"{launches['forward']} backward {launches['backward']}")
+    _check_k3_launched("dcor run")
     return launches["forward"], launches["backward"]
 
 
@@ -1521,6 +1615,7 @@ def phase_baselines_run(dtfl_clock: float) -> None:
     from repro_torch.tree import tree_leaves
 
     clocks = {}
+    fused_xent.SHAPES.clear()
     for method, extra in BASELINE_RUNS.items():
         rows, got, members = [], {}, []
 
@@ -1592,6 +1687,10 @@ def phase_baselines_run(dtfl_clock: float) -> None:
               f"{xent['forward']} backward {xent['backward']}, every tree finite")
     print(f"[baselines] simulated clock after 3 rounds, FedAvg over DTFL (the main path): "
           f"{clocks['fedavg']:.4f} / {dtfl_clock:.4f} s = {clocks['fedavg'] / dtfl_clock:.3f}x")
+    del tr, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    _check_k3_launched("baselines run")
 
 
 def phase_resume_reference() -> None:
@@ -1734,14 +1833,29 @@ ATTN_CASES = [
     ("llama4-scout heads", 8, 512, 40, 8, 128, True, 0),
 ]
 ATTN_DTYPES = ("bfloat16", "float32")
+# K3's timed rows (T, V, dtype): the path's heads (phase 11), then
+# granite's odd vocab and deepseek's, the one-client launches of the MoE
+# and granite runs, yi-6b's vocab at one client and at the two its run
+# launches, and the ResNet's classifier (phase 28)
+K3_TIMED = [
+    (8_192, 49_152, "bfloat16"),
+    (8_192, 49_155, "bfloat16"),
+    (4_096, 102_400, "bfloat16"),
+    (2_048, 102_400, "bfloat16"),
+    (2_048, 49_155, "bfloat16"),
+    (2_048, 64_000, "bfloat16"),
+    (4_096, 64_000, "bfloat16"),
+    (320, 10, "float32"),
+]
 # K3 cases: (T, V, dtype): the path's heads, the ResNet's classifier,
 # ragged, then the LLM configs' vocabularies (granite's odd 49,155 leaves
-# bf16 rows off 16-byte alignment: the element-wise path)
+# bf16 rows off 16-byte alignment: each row's head and tail element-wise)
 XENT_CASES = [
     ("path heads", 8_192, 49_152, "bfloat16"),
     ("ResNet classifier", 320, 10, "float32"),
     ("ragged", 1_000, 50_001, "bfloat16"),
     ("granite-3-2b heads", 8_192, 49_155, "bfloat16"),
+    ("granite-3-2b heads, one client", 2_048, 49_155, "bfloat16"),
     ("yi-6b heads", 2_048, 64_000, "bfloat16"),
     ("deepseek heads", 4_096, 102_400, "bfloat16"),
     ("llama4-scout heads", 2_048, 202_048, "bfloat16"),
@@ -1841,8 +1955,9 @@ def _check_k4(label: str, N: int, S: int, H: int, KV: int, hd: int, causal: bool
 
 
 def _check_k3(label: str, T: int, V: int, dtype, g) -> tuple[float, float]:
-    """K3 forward and backward at (T, V) against their plain versions.
-    Returns the max loss and gradient |diff|."""
+    """K3 forward and backward at (T, V) against their plain versions, and
+    each against itself rerun (bit-identical). Returns the max loss and
+    gradient |diff|."""
     import torch
 
     from repro_torch.kernels import fused_xent as fx
@@ -1862,6 +1977,10 @@ def _check_k3(label: str, T: int, V: int, dtype, g) -> tuple[float, float]:
                      1e-5 if dtype == torch.float32 else 1e-2, 1e-6)
     if not ok or grad.dtype != dtype:
         fail(f"fused_xent backward differs from its plain version on {label}: {bwd}")
+    loss2, lse2 = fx.xent_forward(logits, labels)
+    if not (torch.equal(loss2, loss) and torch.equal(lse2, lse)
+            and torch.equal(fx.xent_backward(logits, labels, lse, gt), grad)):
+        fail(f"fused_xent on {label} is not bit-identical from run to run")
     print(f"[kernels] fused_xent {label} {(T, V)} {str(dtype).removeprefix('torch.')}: "
           f"loss max |diff| {fwd:.3g}, gradient max |diff| {bwd:.3g}")
     return fwd, bwd
@@ -1870,6 +1989,29 @@ def _check_k3(label: str, T: int, V: int, dtype, g) -> tuple[float, float]:
 def _merge_err(err: dict, name: str, fwd: float, bwd: float) -> None:
     err[f"{name}_forward"] = max(err[f"{name}_forward"], fwd)
     err[f"{name}_backward"] = max(err[f"{name}_backward"], bwd)
+
+
+# the largest K3 |diff| at the shapes the runs launched (``_check_k3_launched``)
+K3_LAUNCHED_ERR = {"fused_xent_forward": 0.0, "fused_xent_backward": 0.0}
+
+
+def _check_k3_launched(label: str) -> None:
+    """Every shape at which K3 launched since ``fused_xent.SHAPES`` was
+    cleared, held against the plain versions as phase K3/K4 holds its
+    cases; the errors join ``K3_LAUNCHED_ERR``."""
+    import torch
+
+    from repro_torch.kernels import fused_xent as fx
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    shapes = sorted(fx.SHAPES, key=str)
+    if not shapes:
+        fail(f"{label}: K3 launched at no shape")
+    print(f"[kernels] {label}: K3 launched at "
+          + ", ".join(f"({T}, {V}) {str(dt).removeprefix('torch.')}" for T, V, dt in shapes))
+    for T, V, dtype in shapes:
+        _merge_err(K3_LAUNCHED_ERR, "fused_xent",
+                   *_check_k3(f"{label}, as launched", T, V, dtype, g))
 
 
 def phase_k3_k4() -> dict:
@@ -1928,6 +2070,7 @@ def phase_transformer_run() -> dict:
     torch.cuda.reset_peak_memory_stats()
     fx.LAUNCHES.update(forward=0, backward=0)
     fa.LAUNCHES.update(forward=0, backward=0)
+    fx.SHAPES.clear()
     logs = train.main(TRANSFORMER_ARGV + ["--rounds", "3"], on_round=on_round)
     launches = _k3_k4_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -1953,6 +2096,7 @@ def phase_transformer_run() -> dict:
     # it called cudaMalloc / cudaFree or retried after freeing its cache
     print(f"[transformer] allocator: {reserved0 / 2**30:.3f} GiB reserved before the run; "
           + ", ".join(f"{k} {stats.get(k, 0) - stats0.get(k, 0)}" for k in counters))
+    _check_k3_launched("transformer run")
     return launches
 
 
@@ -2002,16 +2146,18 @@ def _k4_times(N: int, S: int, H: int, KV: int, hd: int, g) -> dict:
     return attn
 
 
-def _k3_times(T: int, V: int, g) -> dict:
-    """K3 at (T, V) bf16, as ``_k4_times``; the yardstick is
-    ``F.cross_entropy`` (``reduction="none"``)."""
+def _k3_times(T: int, V: int, dtype, g) -> dict:
+    """K3 at (T, V) in ``dtype``, as ``_k4_times``; the yardstick is
+    ``F.cross_entropy`` (``reduction="none"``). The bound counts the
+    logits' bytes at their element size, the int64 labels, and the fp32
+    loss and lse (forward) or lse and cotangent (backward)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import fused_xent as fx
     from repro_torch.kernels.ref import fused_xent_bwd_ref, fused_xent_ref
 
-    logits = (3 * torch.randn(T, V, generator=g, device="cuda")).bfloat16()
+    logits = (3 * torch.randn(T, V, generator=g, device="cuda")).to(dtype)
     labels = torch.randint(0, V, (T,), generator=g, device="cuda")
     gt = torch.randn(T, generator=g, device="cuda")
     _, xlse = fx.xent_forward(logits, labels)
@@ -2034,10 +2180,11 @@ def _k3_times(T: int, V: int, g) -> dict:
                      "library_ms": _cuda_ms(xlib_bwd, lr),
                      "library_device_ms": _graph_ms(xlib_bwd, lr)},
     }
+    size = logits.element_size()
     xent["forward"]["bound_ms"], xent["forward"]["bound_by"] = _bound(
-        2 * T * V + 8 * T + 8 * T, 3 * T * V)
+        size * T * V + 8 * T + 8 * T, 3 * T * V)
     xent["backward"]["bound_ms"], xent["backward"]["bound_by"] = _bound(
-        2 * 2 * T * V + 8 * T + 8 * T, 4 * T * V)
+        2 * size * T * V + 8 * T + 8 * T, 4 * T * V)
     return xent
 
 
@@ -2061,7 +2208,8 @@ def phase_k3_k4_times(err: dict) -> list[dict]:
     g = torch.Generator(device="cuda").manual_seed(5)
     entries = []
     attn = _k4_times(16, 512, 15, 5, 64, g)
-    xent = _k3_times(8_192, 49_152, g)
+    T, V, dtype = K3_TIMED[0]
+    xent = _k3_times(T, V, getattr(torch, dtype), g)
     for name, times, src, replaces, shape in (
             ("flash_attention", attn, "flash_attention.cu", "flash_attention.py:75",
              "(16, 512, 15/5, 64) bf16 causal"),
@@ -2224,6 +2372,7 @@ def phase_xlstm_run() -> dict:
     torch.cuda.reset_peak_memory_stats()
     fx.LAUNCHES.update(forward=0, backward=0)
     mk.LAUNCHES.update(forward=0, backward=0)
+    fx.SHAPES.clear()
     logs = train.main(XLSTM_ARGV + ["--rounds", "3"], on_round=on_round)
     launches = _k3_k5_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -2244,6 +2393,9 @@ def phase_xlstm_run() -> dict:
         before = count
     print(f"[xlstm] peak device memory {peak / 2**30:.3f} GiB "
           f"(torch.cuda.max_memory_allocated), launches {launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    _check_k3_launched("xLSTM run")
     return launches
 
 
@@ -2640,13 +2792,13 @@ def _profile_with_ops(fn):
 
 
 def phase_llm_times_and_moe_profile() -> None:
-    """K4 at deepseek-moe-16b's heads (8, 512, 16/16, 128) and K3 at
-    granite's (8,192, 49,155) and deepseek's (4,096, 102,400) vocabularies,
-    timed as phase 11 does; then torch.profiler over two rounds of the MoE
-    run: the device busy share, K3's and K4's shares, the share of the
-    dispatch and combine einsums (every ``aten::bmm``, forward or backward,
-    over the group's E x capacity expert slots), the top kernels and the
-    top operators (self device time, input shapes). Printed only."""
+    """K4 at deepseek-moe-16b's heads (8, 512, 16/16, 128) and K3 at the
+    rows of ``K3_TIMED`` after the path's, timed as phase 11 does; then
+    torch.profiler over two rounds of the MoE run: the device busy share,
+    K3's and K4's shares, the share of the dispatch and combine einsums
+    (every ``aten::bmm``, forward or backward, over the group's E x
+    capacity expert slots), the top kernels and the top operators (self
+    device time, input shapes). Printed only."""
     import gc
 
     import torch
@@ -2656,8 +2808,9 @@ def phase_llm_times_and_moe_profile() -> None:
     g = torch.Generator(device="cuda").manual_seed(9)
     _print_times("flash_attention", "(8, 512, 16/16, 128) bf16 causal",
                  _k4_times(8, 512, 16, 16, 128, g))
-    for T, V in ((8_192, 49_155), (4_096, 102_400)):
-        _print_times("fused_xent", f"({T}, {V}) bf16", _k3_times(T, V, g))
+    for T, V, dtype in K3_TIMED[1:]:
+        _print_times("fused_xent", f"({T}, {V}) {dtype}",
+                     _k3_times(T, V, getattr(torch, dtype), g))
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -2695,7 +2848,37 @@ def phase_llm_times_and_moe_profile() -> None:
               f"{ev.key} {str(ev.input_shapes)[:100]}")
 
 
+def k3_alone(src: Path) -> None:
+    """``python3 chip_smoke.py --k3 [SRC]``: K3 alone, from the port under
+    SRC (this checkout's ``src`` by default): build it, its build report,
+    its cases against the plain versions, then the rows of ``K3_TIMED``.
+    Run on two checkouts in turns within one call, it compares them on one
+    card."""
+    sys.path.insert(0, str(src.resolve()))
+    smi = phase_device()
+    import torch
+
+    from repro_torch.kernels import fused_xent, nvcc
+
+    t0 = time.perf_counter()
+    fused_xent.load_library()
+    print(f"[build] fused_xent from {src}: {time.perf_counter() - t0:.2f} s")
+    print(nvcc.library_path("fused_xent").with_suffix(".log").read_text().strip())
+    k3_build_report()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for label, T, V, dt in XENT_CASES:
+        _check_k3(label, T, V, getattr(torch, dt), g)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for T, V, dtype in K3_TIMED:
+        _print_times("fused_xent", f"({T}, {V}) {dtype}",
+                     _k3_times(T, V, getattr(torch, dtype), g))
+    print(smi)
+
+
 def main() -> None:
+    if sys.argv[1:2] == ["--k3"]:
+        k3_alone(Path(sys.argv[2]) if len(sys.argv) > 2 else ROOT / "src")
+        return
     t0 = time.perf_counter()
     smi = phase_device()
     phase_build()
@@ -2767,6 +2950,8 @@ def main() -> None:
     _phase("K1 device time", 1, phase_k1_device_time, entry)
     k2_fwd, k2_bwd = _phase("K2 times", 1, phase_k2_times, *k2_err)
     k2_fwd["launches"], k2_bwd["launches"] = k2_launches
+    for name, err in K3_LAUNCHED_ERR.items():
+        k34_err[name] = max(k34_err[name], err)
     k34 = _phase("K3/K4 times", 15, phase_k3_k4_times, k34_err)
     for e in k34:
         e["launches"] = k34_launches[e["name"]]

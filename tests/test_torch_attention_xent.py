@@ -104,12 +104,19 @@ def test_attention_and_grads_match_jax(dtype, S, H, KV, causal, window):
             np.testing.assert_allclose(_np32(got), want, atol=tol * scale, rtol=tol)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_plain_fused_xent_matches_pallas_kernel_and_ref(dtype):
-    """K3's plain forward against the Pallas kernel (interpret mode, T = 64,
-    V = 512 divide its blocks) and the JAX oracle."""
-    (jl,), (tl,) = _inputs([(64, 512)], dtype, seed=2)
-    labels = np.random.default_rng(3).integers(0, 512, 64).astype(np.int32)
+@pytest.mark.parametrize("T,V,dtype", [
+    pytest.param(64, 512, "float32", id="float32"),
+    pytest.param(64, 512, "bfloat16", id="bfloat16"),
+    pytest.param(64, 10, "float32", id="resnet-classifier-float32"),   # V = 10, one block
+    pytest.param(16, 1_027, "bfloat16", id="odd-vocab-bfloat16"),      # rows off 16 bytes
+])
+def test_plain_fused_xent_matches_pallas_kernel_and_ref(T, V, dtype):
+    """K3's plain forward against the Pallas kernel (interpret mode; its
+    blocks divide T and V) and the JAX oracle; the first label at column 0,
+    the last at column V - 1."""
+    (jl,), (tl,) = _inputs([(T, V)], dtype, seed=2)
+    labels = np.random.default_rng(3).integers(0, V, T).astype(np.int32)
+    labels[0], labels[-1] = 0, V - 1
     want_kernel = jfused_xent(jl, jnp.asarray(labels), interpret=True)
     want_ref = jref.fused_xent_ref(jl, jnp.asarray(labels))
     got, lse = fused_xent_ref(tl, torch.from_numpy(labels))

@@ -56,6 +56,7 @@ K2 tolerances, with their reasons (u = 2**-24, gamma_n = n u / (1 - n u)):
     another order, so the results differ by at most
     4 gamma_B * 2 (rowsum|S| |x_i| + |S| |x|).
 """
+import numpy as np
 import pytest
 import torch
 
@@ -342,6 +343,72 @@ def test_fused_xent_wrapper_rejects_what_the_kernel_does_not_take():
         fx.fused_xent(torch.zeros(4, 0), labels)
 
 
+def _xent_row_cut(V, itemsize, offset, lanes):
+    """How many times each element of a row is read when its ``lanes``
+    threads take it as ``csrc/fused_xent.cu`` cuts a row whose first
+    element lies ``offset`` bytes past a 16-byte boundary: lane t takes
+    head and tail elements t, t + lanes, ... (``split_row``: the head runs
+    to the first boundary) and 16-byte vectors t, t + lanes, ... in
+    between. Returns (reads a column, the byte offset of the first vector,
+    or None without one)."""
+    N = 16 // itemsize
+    past = offset % 16 // itemsize
+    head = min(V, (N - past) & (N - 1))
+    nvec = (V - head) // N
+    tail0 = head + nvec * N
+    scalars = np.concatenate([np.arange(head), np.arange(tail0, V)])
+    reads = np.zeros(V, dtype=np.int64)
+    for t in range(lanes):
+        np.add.at(reads, scalars[t::lanes], 1)
+        vec = np.arange(t, nvec, lanes)
+        np.add.at(reads, (head + vec[:, None] * N + np.arange(N)).ravel(), 1)
+    return reads, (offset + head * itemsize if nvec else None)
+
+
+# K3's shapes: the timed rows, the runs' launches, the card tests' cases
+XENT_GEOMETRY_SHAPES = [
+    (8_192, 49_152, 2), (8_192, 49_155, 2), (4_096, 102_400, 2), (2_048, 102_400, 2),
+    (2_048, 64_000, 2), (2_048, 49_155, 2), (6_144, 49_155, 2), (2_048, 202_048, 2),
+    (8_192, 50_304, 2), (6_144, 50_304, 2), (4_096, 64_000, 2), (4_096, 49_152, 2),
+    (320, 10, 4), (32, 10, 4), (640, 10, 4), (1_000, 50_001, 2),
+    (333, 4_096, 4), (7, 202_048, 2), (1, 1, 2), (1, 1, 4), (5, 10, 2), (64, 4_097, 2),
+    (64, 4_103, 2), (64, 4_099, 4), (1, 49_155, 2),
+]
+
+
+@pytest.mark.parametrize("T,V,itemsize,base", [
+    (T, V, size, base) for T, V, size in XENT_GEOMETRY_SHAPES
+    for base in ((0, 2, 6, 14) if size == 2 else (0, 4, 12))])
+def test_fused_xent_geometry_covers_rows_and_elements(T, V, itemsize, base):
+    """``geometry``: every row in exactly one (block, slot), no block
+    without a row; every element of every row read exactly once, the
+    vectors starting on a 16-byte boundary, at each row's own offset
+    (logits starting ``base`` bytes past a boundary: a view with a storage
+    offset)."""
+    shape = fx.geometry(T, V, itemsize, sms=132)
+    assert shape.lanes & (shape.lanes - 1) == 0 and 1 <= shape.lanes <= fx.THREADS
+    assert shape.rows * shape.lanes == fx.THREADS
+    rows = np.arange(shape.blocks)[:, None] * shape.rows + np.arange(shape.rows)
+    assert np.array_equal(np.sort(rows[rows < T]), np.arange(T))
+    assert rows[-1, 0] < T                                  # the last block has a row
+    for offset in sorted({(base + r * V * itemsize) % 16 for r in range(min(T, 16))}):
+        reads, first = _xent_row_cut(V, itemsize, offset, shape.lanes)
+        assert (reads == 1).all()
+        assert first is None or first % 16 == 0
+
+
+def test_fused_xent_geometry_splits_small_t_and_packs_small_v():
+    """At T = 2,048 a row spans several warps (the MoE and one-client
+    granite launches); at the path's T = 8,192 one warp; the ResNet's
+    classifier (V = 10 fp32) packs rows into a warp."""
+    for V in (102_400, 49_155, 64_000):
+        assert fx.geometry(2_048, V, 2).lanes > 32
+    assert fx.geometry(8_192, 49_152, 2).lanes == 32
+    resnet = fx.geometry(320, 10, 4)
+    assert resnet.lanes < 32 and resnet.rows > 8
+    assert fx.geometry(7, 202_048, 2).lanes == fx.THREADS
+
+
 def test_plain_attention_grads_equal_autograd():
     """The plain backward (FlashAttention-2's form from the saved lse) is
     the gradient of the plain forward: against autograd through a
@@ -429,18 +496,53 @@ def test_flash_attention_kernels_match_plain_on_card(cuda_device, N, S, H, KV, h
     assert all(torch.equal(a, b) for a, b in zip(auto, grads))
 
 
+def _xent_labels(kind, logits, g):
+    """Labels for K3's card tests: random; at column 0 and V - 1 in turn;
+    or each row's last element before its first 16-byte boundary (the
+    peeled head; column 0 where the row starts on one)."""
+    T, V = logits.shape
+    if kind == "random":
+        return torch.randint(0, V, (T,), generator=g, device=logits.device)
+    rows = torch.arange(T, device=logits.device)
+    if kind == "ends":
+        return rows % 2 * (V - 1)
+    size = logits.element_size()
+    n = 16 // size
+    past = (logits.data_ptr() + rows * V * size) % 16 // size
+    head = torch.clamp((n - past) % n, max=V)
+    return torch.clamp(head - 1, min=0)
+
+
+BF16, FP32 = torch.bfloat16, torch.float32
+# (T, V, dtype, storage offset in elements, labels)
+XENT_CARD_CASES = [
+    (8_192, 49_152, BF16, 0, "random"),       # the path's heads
+    (320, 10, FP32, 0, "random"),             # the ResNet's classifier
+    (1_000, 50_001, BF16, 0, "random"),       # ragged: rows off 16-byte alignment
+    (333, 4_096, FP32, 0, "random"),
+    (7, 202_048, BF16, 0, "random"),          # the largest vocab: a block a row
+    (2_048, 49_155, BF16, 0, "head"),         # rows split over warps
+    *[(64, 4_096 + r, BF16, 0, "head") for r in range(1, 8)],   # each row offset mod 16
+    *[(64, 4_096 + r, FP32, 0, "head") for r in range(1, 4)],
+    (64, 4_099, BF16, 3, "head"),             # a view with a storage offset
+    (64, 4_099, FP32, 1, "ends"),
+    (64, 4_096, BF16, 5, "ends"),
+    (9, 1, BF16, 0, "ends"),
+    (9, 1, FP32, 1, "ends"),
+    (200, 10, BF16, 1, "ends"),
+    (1, 49_155, BF16, 0, "ends"),
+    (1, 10, FP32, 0, "random"),
+    (7, 202_048, BF16, 0, "ends"),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,V,dtype", [
-    (8_192, 49_152, torch.bfloat16),     # the path's heads
-    (320, 10, torch.float32),            # the ResNet's classifier
-    (1_000, 50_001, torch.bfloat16),     # ragged: rows off 16-byte alignment
-    (333, 4_096, torch.float32),
-    (7, 202_048, torch.bfloat16),        # the largest vocab of the assigned archs
-])
-def test_fused_xent_kernels_match_plain_on_card(cuda_device, T, V, dtype):
+@pytest.mark.parametrize("T,V,dtype,offset,labels", XENT_CARD_CASES)
+def test_fused_xent_kernels_match_plain_on_card(cuda_device, T, V, dtype, offset, labels):
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    logits = (3 * torch.randn(T, V, generator=g, device=cuda_device)).to(dtype)
-    labels = torch.randint(0, V, (T,), generator=g, device=cuda_device)
+    flat = (3 * torch.randn(T * V + offset, generator=g, device=cuda_device)).to(dtype)
+    logits = flat[offset:].view(T, V)
+    labels = _xent_labels(labels, logits, g)
     before = dict(fx.LAUNCHES)
     loss, lse = fx.xent_forward(logits, labels)
     torch.cuda.synchronize()
@@ -457,9 +559,30 @@ def test_fused_xent_kernels_match_plain_on_card(cuda_device, T, V, dtype):
     assert grad.dtype == dtype
     assert _close(grad, want, 1e-5 if dtype == torch.float32 else 1e-2, 1e-6)
 
-    la = logits.clone().requires_grad_(True)
+    # through autograd, on the same memory (the row's cut, and with it the
+    # forward's order of summation, follows the offset from 16 bytes)
+    la = logits.detach().requires_grad_(True)
     (auto,) = torch.autograd.grad((fx.fused_xent(la, labels) * gt).sum(), la)
     assert torch.equal(auto, grad)
+    # a fixed order of summation: the same bits run to run
+    again, lse_again = fx.xent_forward(logits, labels)
+    assert torch.equal(again, loss) and torch.equal(lse_again, lse)
+    assert torch.equal(fx.xent_backward(logits, labels, lse, gt), grad)
+
+
+@pytest.mark.cuda
+def test_fused_xent_backward_refuses_dlogits_at_another_offset_on_card(cuda_device):
+    """The backward cuts logits and dlogits rows alike, so the library
+    refuses a dlogits whose offset mod 16 differs from the logits'."""
+    logits = torch.zeros(4, 64, device=cuda_device)
+    out = torch.empty(4 * 64 + 1, device=cuda_device)[1:]
+    labels = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    lse, gt = torch.zeros(4, device=cuda_device), torch.ones(4, device=cuda_device)
+    shape = fx.geometry(4, 64, 4)
+    err = fx.load_library().fused_xent_backward(
+        logits.data_ptr(), labels.data_ptr(), 4, lse.data_ptr(), gt.data_ptr(), out.data_ptr(),
+        4, 64, 0, shape.lanes, shape.blocks, torch.cuda.current_stream().cuda_stream)
+    assert err != 0
 
 
 def _mlstm_inputs(BH, S, dh, g, device):
