@@ -64,9 +64,11 @@ Phases (any failure exits non-zero and prints no result line):
      path's shapes, at ragged ones and at the full-width heads of the LLM
      configs (K4 at 8 sequences of 512 tokens: granite-3-2b 32/8 heads at
      hd 64, yi-6b 32/4, deepseek-67b 64/8, deepseek-moe-16b 16/16 and
-     llama4-scout 40/8 at hd 128; K3 in bf16 at (8,192, 49,155) and
-     (2,048, 49,155), granite's odd vocab, whose rows are not 16-byte
-     aligned, (2,048, 64,000), (4,096, 102,400) and (2,048, 202,048)), K4's
+     llama4-scout 40/8 at hd 128; hymba-1.5b's 25/5 at hd 64 with its
+     window of 1,024, at (8, 512) and at (2, 2,048), where it masks; K3 in
+     bf16 at (8,192, 49,155) and (2,048, 49,155), granite's odd vocab,
+     whose rows are not 16-byte aligned, (2,048, 64,000), (4,096, 102,400),
+     (2,048, 202,048) and hymba's odd (4,096 and 2,048, 32,001)), K4's
      every shape in bf16 and fp32 (the absolute tolerances of
      tests/test_torch_kernels.py: K4 fp32 2e-5 forward and 1e-4 backward,
      bf16 rtol 2e-2 with atol 1e-2; K3 loss 2e-4, gradient rtol 1e-5 fp32
@@ -87,8 +89,12 @@ Phases (any failure exits non-zero and prints no result line):
  10. the reduced SmolLM-360M on the card and on the CPU, as phase 6.
  11. K3 and K4 times as K2's, beside the bound (bytes over the memory
      rate, or bf16 products over the tensor-core rate) and one PyTorch
-     call each (``F.cross_entropy``, ``F.scaled_dot_product_attention``),
-     timed only, by events and in CUDA graphs; then torch.profiler over
+     call each (``F.cross_entropy``, ``F.scaled_dot_product_attention``;
+     with a window, SDPA takes it as an explicit mask), timed only, by
+     events and in CUDA graphs, at the path's shapes and hymba-1.5b's
+     (``HYMBA_K4_TIMED``, ``HYMBA_K3_TIMED``; each such row's launches are
+     those the LLM and serve runs made at exactly its shape, from the
+     wrappers' per-shape counts); then torch.profiler over
      two rounds of the transformer run (device busy share, K3's and K4's
      shares, the top kernels), printed only.
  12. K5 (the mLSTM chunk kernels), forward and backward, against the plain
@@ -195,11 +201,36 @@ printed before each run beside its measured peak:
      25; per round also each layer's share of dropped (token, k)
      assignments and ``moe_aux``, on client 0's first batch through the
      global model.
- 27. the reduced variants of the five configs on the card and on the CPU,
+ 27. hymba-1.5b at full width (d_model 1,600, 25 query heads over 5 at
+     hd 64 with a window of 1,024, Mamba heads of state 16 beside them,
+     d_ff 5,504, vocab 32,001), 16 of 32 layers in 8 modules, 2 clients,
+     batch 4 x 512, 3 rounds, as 25; the reckoning adds the Mamba scan's
+     kept tensors; as granite's, its clients must train on at least 2
+     tiers over the rounds. K3 at (2,048 and 4,096, 32,001), K4 at (4 and
+     8, 512, 25/5, 64) with the window.
+ 28. the reduced variants of the six configs on the card and on the CPU,
      as phase 6 (granite-3-2b also with ``--dcor-alpha 0.5``); for the MoE
      configs the count of routes that differ when the CPU run's final model
      routes one batch on the card and on the CPU.
- 28. (at the end) K4 at deepseek-moe-16b's heads (8, 512, 16/16, 128) and
+ 29. serving (``SERVE_RUNS``) through ``launch/serve.py`` at full width,
+     batch 4, prompt 16, weights from seed 0, each step one CUDA-graph
+     replay of torch ops: hymba-1.5b at its 32 layers for 1,024 tokens (the
+     ring of 1,024 wraps), SmolLM-360M (32 layers, 64 tokens; then with
+     ``--split-tier 3``, which must give the same tokens), xLSTM-350M (24
+     layers, 64 tokens), deepseek-moe-16b at 16 of 28 layers (32 tokens).
+     Tokens per second; no kernel may launch. The served config's first
+     32 steps eagerly and graph-replayed in turns (eager, graph, graph,
+     eager): steps per second of each, logits equal bit for bit. hymba's
+     ring at layer 0's heads in fp32: past the wrap, its output against
+     attention over exactly the last 1,024 inputs alone. Then the same
+     weights in fp32 decode the run's tokens and ``forward`` runs over them
+     (K4, with hymba's window over 1,040 positions): the logits within the
+     run's tolerance (1e-4 of their largest magnitude for hymba and
+     SmolLM, 1e-3 for xLSTM and MoE), an MoE's tokens routed to other
+     experts by the two left out and counted (at most
+     ``SERVE_MAX_FLIPPED``); each K4 shape the forward launched is held
+     against its plain version and its launches are counted by shape.
+ 30. (at the end) K4 at deepseek-moe-16b's heads (8, 512, 16/16, 128) and
      K3 at the rest of ``K3_TIMED`` (granite's (8,192, 49,155) and
      (2,048, 49,155), deepseek's (4,096, 102,400) and (2,048, 102,400),
      yi-6b's (2,048, 64,000) and (4,096, 64,000) in bf16, the ResNet's
@@ -227,6 +258,7 @@ import json
 import subprocess
 import sys
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from functools import partial
@@ -1831,12 +1863,16 @@ ATTN_CASES = [
     ("deepseek-67b heads", 8, 512, 64, 8, 128, True, 0),
     ("deepseek-moe-16b heads", 8, 512, 16, 16, 128, True, 0),
     ("llama4-scout heads", 8, 512, 40, 8, 128, True, 0),
+    # hymba-1.5b: 25 query heads over 5 (G = 5) with its window of 1,024,
+    # which masks nothing at the training path's 512 tokens and does at 2,048
+    ("hymba-1.5b heads", 8, 512, 25, 5, 64, True, 1024),
+    ("hymba-1.5b window 1024", 2, 2048, 25, 5, 64, True, 1024),
 ]
 ATTN_DTYPES = ("bfloat16", "float32")
 # K3's timed rows (T, V, dtype): the path's heads (phase 11), then
 # granite's odd vocab and deepseek's, the one-client launches of the MoE
 # and granite runs, yi-6b's vocab at one client and at the two its run
-# launches, and the ResNet's classifier (phase 28)
+# launches, and the ResNet's classifier (phase 30)
 K3_TIMED = [
     (8_192, 49_152, "bfloat16"),
     (8_192, 49_155, "bfloat16"),
@@ -1859,7 +1895,15 @@ XENT_CASES = [
     ("yi-6b heads", 2_048, 64_000, "bfloat16"),
     ("deepseek heads", 4_096, 102_400, "bfloat16"),
     ("llama4-scout heads", 2_048, 202_048, "bfloat16"),
+    ("hymba-1.5b heads", 4_096, 32_001, "bfloat16"),
+    ("hymba-1.5b heads, one client", 2_048, 32_001, "bfloat16"),
 ]
+# hymba-1.5b's timed rows (phase 11): K4 at the run's two-client cohort
+# (N, S, H, KV, hd, window) and at the window row, K3 at its one-client
+# cohort (T, V, dtype), the shape most of its rounds launch
+HYMBA_K4_TIMED = [(8, 512, 25, 5, 64, 1024, "bfloat16"), (2, 2048, 25, 5, 64, 1024, "bfloat16"),
+                  (4, 1040, 25, 5, 64, 1024, "float32")]
+HYMBA_K3_TIMED = (2_048, 32_001, "bfloat16")
 
 
 def _close(got, want, rtol: float, atol: float) -> tuple[bool, float]:
@@ -2100,29 +2144,39 @@ def phase_transformer_run() -> dict:
     return launches
 
 
-def _k4_times(N: int, S: int, H: int, KV: int, hd: int, g) -> dict:
-    """K4 at (N, S, H/KV, hd), causal, bf16: CUDA events and CUDA-graph
-    device time for the kernels, their plain versions and SDPA (timed here,
-    never called by the port; the backward yardstick is its forward and
-    autograd's backward, both captured), beside the bound."""
+def _k4_times(N: int, S: int, H: int, KV: int, hd: int, g, window: int = 0,
+              dtype: str = "bfloat16") -> dict:
+    """K4 at (N, S, H/KV, hd), causal (and windowed if ``window``), in
+    ``dtype`` (bf16 on the tensor cores, fp32 on the FMA units):
+    CUDA events and CUDA-graph device time for the kernels, their plain
+    versions and SDPA (timed here, never called by the port; a window goes
+    to it as an explicit boolean mask; the backward yardstick is its
+    forward and autograd's backward, both captured), beside the bound,
+    which counts the (query, key) pairs the mask keeps."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels.ref import attention_bwd_ref, attention_ref
+    from repro_torch.kernels.ref import _visible, attention_bwd_ref, attention_ref
 
-    q = torch.randn(N, S, H, hd, generator=g, device="cuda").bfloat16()
-    k = torch.randn(N, S, KV, hd, generator=g, device="cuda").bfloat16()
-    v = torch.randn(N, S, KV, hd, generator=g, device="cuda").bfloat16()
-    do = torch.randn(N, S, H, hd, generator=g, device="cuda").bfloat16()
-    o, lse = fa.attn_forward(q, k, v, causal=True)
+    dt = getattr(torch, dtype)
+    q = torch.randn(N, S, H, hd, generator=g, device="cuda").to(dt)
+    k = torch.randn(N, S, KV, hd, generator=g, device="cuda").to(dt)
+    v = torch.randn(N, S, KV, hd, generator=g, device="cuda").to(dt)
+    do = torch.randn(N, S, H, hd, generator=g, device="cuda").to(dt)
+    o, lse = fa.attn_forward(q, k, v, causal=True, window=window)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))     # SDPA's (N, H, S, hd)
     qr, kr, vr = (t.clone().requires_grad_(True) for t in (qt, kt, vt))
-    sdpa = partial(F.scaled_dot_product_attention, is_causal=True, enable_gqa=True)
-    fwd_fn = partial(fa.attn_forward, k=k, v=v, causal=True)
-    bwd_fn = partial(fa.attn_backward, k=k, v=v, o=o, lse=lse, do=do, causal=True)
-    fwd_plain = partial(attention_ref, k=k, v=v, causal=True)
-    bwd_plain = partial(attention_bwd_ref, k=k, v=v, o=o, lse=lse, do=do, causal=True)
+    if window:
+        sdpa = partial(F.scaled_dot_product_attention,
+                       attn_mask=_visible(S, True, window, q.device), enable_gqa=True)
+    else:
+        sdpa = partial(F.scaled_dot_product_attention, is_causal=True, enable_gqa=True)
+    mask = dict(causal=True, window=window)
+    fwd_fn = partial(fa.attn_forward, k=k, v=v, **mask)
+    bwd_fn = partial(fa.attn_backward, k=k, v=v, o=o, lse=lse, do=do, **mask)
+    fwd_plain = partial(attention_ref, k=k, v=v, **mask)
+    bwd_plain = partial(attention_bwd_ref, k=k, v=v, o=o, lse=lse, do=do, **mask)
     dot = do.transpose(1, 2)
     lib_fwd = lambda t: sdpa(t, kt, vt)                                          # noqa: E731
     lib_bwd = lambda t: torch.autograd.grad(sdpa(t, kr, vr), (t, kr, vr), dot)  # noqa: E731
@@ -2137,12 +2191,15 @@ def _k4_times(N: int, S: int, H: int, KV: int, hd: int, g) -> dict:
                      "library_ms": _cuda_ms(lib_bwd, qr),
                      "library_device_ms": _graph_ms(lib_bwd, qr)},
     }
-    pairs = N * H * S * (S + 1) // 2                 # causal (query, key) pairs
-    q_bytes, kv_bytes, lse_bytes = 2 * N * S * H * hd, 2 * N * S * KV * hd, 4 * N * H * S
+    # the (query, key) pairs causality and the window keep
+    pairs = N * H * sum(min(i + 1, window or S) for i in range(S))
+    size = q.element_size()
+    rate = BF16_OPS_PER_S if dt == torch.bfloat16 else FP32_OPS_PER_S
+    q_bytes, kv_bytes, lse_bytes = size * N * S * H * hd, size * N * S * KV * hd, 4 * N * H * S
     attn["forward"]["bound_ms"], attn["forward"]["bound_by"] = _bound(
-        2 * q_bytes + 2 * kv_bytes + lse_bytes, 2 * 2 * pairs * hd, BF16_OPS_PER_S)
+        2 * q_bytes + 2 * kv_bytes + lse_bytes, 2 * 2 * pairs * hd, rate)
     attn["backward"]["bound_ms"], attn["backward"]["bound_by"] = _bound(
-        4 * q_bytes + 4 * kv_bytes + lse_bytes, 5 * 2 * pairs * hd, BF16_OPS_PER_S)
+        4 * q_bytes + 4 * kv_bytes + lse_bytes, 5 * 2 * pairs * hd, rate)
     return attn
 
 
@@ -2202,7 +2259,8 @@ def _print_times(name: str, shape: str, times: dict) -> None:
 def phase_k3_k4_times(err: dict) -> list[dict]:
     """K3 and K4 times at the SmolLM-360M path's shapes (``_k4_times``,
     ``_k3_times``): 16 sequences x 15 heads over 5, S = 512, hd 64; 8,192
-    tokens over a vocab of 49,152."""
+    tokens over a vocab of 49,152; then hymba-1.5b's rows (``HYMBA_K4_TIMED``,
+    ``HYMBA_K3_TIMED``)."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -2215,17 +2273,38 @@ def phase_k3_k4_times(err: dict) -> list[dict]:
              "(16, 512, 15/5, 64) bf16 causal"),
             ("fused_xent", xent, "fused_xent.cu", "fused_xent.py:62", "(8192, 49152) bf16")):
         _print_times(name, shape, times)
-        for direction in ("forward", "backward"):
-            entries.append({
-                "name": f"{name}_{direction}",
-                "route": "cuda",
-                "source": f"src/repro_torch/kernels/csrc/{src}",
-                "replaces": f"src/repro/kernels/{replaces}",
-                "launches": None,        # filled from the transformer run
-                "max_abs_err": err[f"{name}_{direction}"],
-                **times[direction],
-            })
+        entries += _entries(name, times, src, replaces, err, "")
+    # hymba-1.5b's rows: the name says the shape; each row's launches are
+    # those the runs made at exactly its shape (SHAPE_LAUNCHES)
+    for N, S, H, KV, hd, window, dtype in HYMBA_K4_TIMED:
+        shape = f"({N}, {S}, {H}/{KV}, {hd}) {dtype} causal window {window}"
+        times = _k4_times(N, S, H, KV, hd, g, window=window, dtype=dtype)
+        _print_times("flash_attention", shape, times)
+        entries += _entries("flash_attention", times, "flash_attention.cu",
+                            "flash_attention.py:75", err, f" at hymba-1.5b {shape}",
+                            (N, S, H, KV, hd, True, window, getattr(torch, dtype)))
+    T, V, dtype = HYMBA_K3_TIMED
+    times = _k3_times(T, V, getattr(torch, dtype), g)
+    shape = f"({T}, {V}) {dtype}"
+    _print_times("fused_xent", shape, times)
+    entries += _entries("fused_xent", times, "fused_xent.cu", "fused_xent.py:62", err,
+                        f" at hymba-1.5b {shape}", (T, V, getattr(torch, dtype)))
     return entries
+
+
+def _entries(name: str, times: dict, src: str, replaces: str, err: dict, suffix: str,
+             key: "tuple | None" = None) -> list[dict]:
+    """The kernels line's forward and backward entries of one timed row.
+    With the row's launch ``key`` (the wrappers' ``SHAPES`` key), its
+    ``launches`` are the runs' launches at that shape (``SHAPE_LAUNCHES``);
+    without one, ``main`` fills them from the main path's run."""
+    return [{"name": f"{name}_{direction}{suffix}",
+             "route": "cuda",
+             "source": f"src/repro_torch/kernels/csrc/{src}",
+             "replaces": f"src/repro/kernels/{replaces}",
+             "launches": None if key is None else SHAPE_LAUNCHES[(name, direction, key)],
+             "max_abs_err": err[f"{name}_{direction}"],
+             **times[direction]} for direction in ("forward", "backward")]
 
 
 # K5 cases: (label, BH, S, dh); the first is the xLSTM path's (3 clients x 4
@@ -2524,10 +2603,14 @@ LLM_RUNS = {
     "granite-3-2b + dcor": ("granite-3-2b", 4, 4, 4, 4, 3, 0.5),
     "yi-6b": ("yi-6b", 2, 2, 2, 4, 2, 0.0),
     "deepseek-moe-16b": ("deepseek-moe-16b", 2, 2, 1, 4, 3, 0.0),
+    "hymba-1.5b": ("hymba-1.5b", 16, 8, 2, 4, 3, 0.0),
 }
+# K2, K3 and K4 launches of the LLM and serve runs, by (kernel, direction,
+# the wrappers' SHAPES key), summed over the runs (_record_shapes)
+SHAPE_LAUNCHES: Counter = Counter()
 # the reduced configs on the card and the CPU: the CLI at --arch (SMOLLM_SMALL's sizes)
 LLM_ARCHS = ("granite-3-2b", "yi-6b", "deepseek-67b", "deepseek-moe-16b",
-             "llama4-scout-17b-a16e")
+             "llama4-scout-17b-a16e", "hymba-1.5b")
 
 
 def _llm_trainer(arch, n_layers, n_modules, clients, batch, dcor_alpha):
@@ -2563,7 +2646,8 @@ def _llm_reckoning(arch, n_layers, n_modules, clients, batch) -> dict:
     the SmolLM-360M and xLSTM-350M runs' peaks came to 29-31 B); the global
     model and the per-tier aux heads (4 B); the aux head's and the server's
     logits, bf16, with their gradients; Adam's temporaries on the largest
-    leaf (5 x 4 B). Activations are not counted."""
+    leaf (5 x 4 B); for the hybrid family the Mamba scan's tensors
+    (``_mamba_scan_bytes``). Other activations are not counted."""
     from repro_torch.configs import get_config
     from repro_torch.core import tiering
     from repro_torch.models import model as M
@@ -2582,7 +2666,24 @@ def _llm_reckoning(arch, n_layers, n_modules, clients, batch) -> dict:
         "logits": 4 * 2 * clients * batch * LLM_SEQ * cfg.padded_vocab / gib,
         "Adam temporaries": 5 * 4 * clients * largest / gib,
     }
+    if cfg.family == "hybrid":
+        parts["Mamba scan"] = _mamba_scan_bytes(cfg, clients, batch) / gib
     return {"params a client": p_model + p_aux, "parts": parts, "total": sum(parts.values())}
+
+
+def _mamba_scan_bytes(cfg, clients: int, batch: int) -> float:
+    """The Mamba scan's fp32 tensors (``models/ssm.py::mamba_apply``): for
+    the backward, autograd keeps each chunk's input state (C, B, di, N),
+    S / P of them a layer; one chunk at a time is computed again in the
+    backward, about 40 (C, B, P, di, N) tensors with their gradients (a, b,
+    the doubling scan's steps, the states). Kept for every chunk, each of
+    them would take 4 B x B x S x di x N a layer and client (0.2 GiB at
+    B 4 x 512, di 1,600, N 16), a dozen of them a layer."""
+    from repro_torch.models import ssm
+
+    P = ssm.MAMBA_CHUNK
+    state = 4 * clients * batch * cfg.d_model * cfg.ssm_state
+    return cfg.n_layers * (LLM_SEQ // P) * state + 40 * P * state
 
 
 def _kernel_counts() -> dict:
@@ -2632,6 +2733,31 @@ def _moe_layer_stats(trainer, batch: dict) -> tuple[list[float], float]:
             for *_, pos in routes], float(aux)
 
 
+def _shape_counters() -> dict:
+    """The wrappers' per-shape launch counts, by (kernel, direction)."""
+    from repro_torch.kernels import dcor
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_xent as fx
+
+    return {(name, direction): counts
+            for name, mod in (("pairwise_dist", dcor), ("flash_attention", fa),
+                              ("fused_xent", fx))
+            for direction, counts in (("forward", mod.SHAPES),
+                                      ("backward", mod.BACKWARD_SHAPES))}
+
+
+def _clear_shapes() -> None:
+    for counts in _shape_counters().values():
+        counts.clear()
+
+
+def _record_shapes() -> None:
+    """Add the launches since ``_clear_shapes`` to ``SHAPE_LAUNCHES``."""
+    for (name, direction), counts in _shape_counters().items():
+        for key, n in counts.items():
+            SHAPE_LAUNCHES[(name, direction, key)] += n
+
+
 def _check_launched(label: str) -> dict:
     """Every shape at which K2, K3 and K4 launched since their ``SHAPES``
     were cleared, held against the plain versions as phases K2 and K3/K4
@@ -2660,11 +2786,13 @@ def phase_llm_run(label: str) -> dict:
     """One LLM run at full width (``LLM_RUNS``): its memory reckoned before
     it starts and measured after; per round wall, clock, tiers, uplink
     bytes and kernel launches (every round must launch K3 and K4 forward
-    and backward, and K2 both ways with dcor); for MoE also each layer's
-    share of dropped assignments and ``moe_aux``; every parameter and aux
-    head finite and of its shape. Then, with the trainer freed, each K2,
-    K3 and K4 shape that the run launched is held against its plain
-    version (``_check_launched``); returns the max |diff| of each."""
+    and backward, and K2 both ways with dcor); several clients with
+    several tiers must train on at least two tiers over the rounds; for
+    MoE also each layer's share of dropped assignments and ``moe_aux``;
+    every parameter and aux head finite and of its shape. Then, with the
+    trainer freed, each K2, K3 and K4 shape that the run launched is held
+    against its plain version (``_check_launched``); returns the max
+    |diff| of each."""
     import gc
 
     import numpy as np
@@ -2703,8 +2831,7 @@ def phase_llm_run(label: str) -> dict:
     fx.LAUNCHES.update(forward=0, backward=0)
     fa.LAUNCHES.update(forward=0, backward=0)
     dcor.LAUNCHES.update(forward=0, backward=0)
-    for shapes_launched in (fx.SHAPES, fa.SHAPES, dcor.SHAPES):
-        shapes_launched.clear()
+    _clear_shapes()
     logs = trainer.run(n_rounds, eval_batch, on_round=on_round)
     peak = torch.cuda.max_memory_allocated() / 2**30, torch.cuda.max_memory_reserved() / 2**30
     if len(logs) != n_rounds or len(rows) != n_rounds:
@@ -2731,6 +2858,10 @@ def phase_llm_run(label: str) -> dict:
         if stats is not None and not np.isfinite(stats[1]):
             fail(f"{label} run: moe_aux is not finite")
         base = after
+    tiers = set().union(*(log.assignment.values() for log in logs))
+    if clients > 1 and n_modules > 2 and len(tiers) < 2:
+        fail(f"{label} run: its clients trained on tier {sorted(tiers)} only")
+    _record_shapes()
     print(f"[llm] {label}: memory reckoned {want['total']:.2f} GiB, measured peak allocated "
           f"{peak[0]:.3f} GiB (reserved {peak[1]:.3f} GiB); trainer built in {build_s:.1f} s")
     print(f"[llm] {label}: launched K2 at {sorted(dcor.SHAPES)}, K3 at "
@@ -2848,6 +2979,264 @@ def phase_llm_times_and_moe_profile() -> None:
               f"{ev.key} {str(ev.input_shapes)[:100]}")
 
 
+# The serve runs: (layers, or None for the CLI's full depth, prompt
+# tokens, tokens decoded, split tier or 0, tolerance), batch 4, weights
+# from seed 0. hymba's 16 + 1,024 positions wrap its ring of 1,024;
+# deepseek-moe-16b's 28 layers hold 66 GB of fp32 weights and their init
+# takes a leaf's worth more, so it serves 16 (generate() on the CLI's
+# model at that depth). The tolerance is the largest |decode - forward| of
+# the fp32 logits allowed, against the logits' largest magnitude
+# (phase_serve). The card read (NVIDIA H100 80GB HBM3, 700 W): hymba-1.5b
+# 7.2e-6 over 1,040 positions and SmolLM-360M 2.2e-6, held to 1e-4;
+# xLSTM-350M 1.2e-4 (its forward runs the mLSTM on K5's split-TF32 chunk
+# form, the decode the fp32 per-step recurrence) and deepseek-moe-16b
+# 1.4e-4 with 1 of 192 tokens routed to other experts (0.029 there; the
+# tokens after it read its k and v), held to 1e-3.
+SERVE_RUNS = {
+    "hymba-1.5b": (None, 16, 1024, 0, 1e-4),
+    "smollm-360m": (None, 16, 64, 3, 1e-4),
+    "xlstm-350m": (None, 16, 64, 0, 1e-3),
+    "deepseek-moe-16b": (16, 16, 32, 0, 1e-3),
+}
+# the share of an MoE's tokens that the decode and the forward may route
+# to other experts
+SERVE_MAX_FLIPPED = 0.05
+# _check_ring: a ring layer's output past the wrap against attention over
+# exactly its last W inputs, of the output's largest magnitude. The card
+# read 1.37e-5 at hymba's W = 1,024 (NVIDIA H100 80GB HBM3, 700 W; the
+# reference's RoPE angles are of positions 0-1,023, the decode's of
+# 16-1,039) and 0.0269 over 1,023 or 1,025 inputs; the CPU test at W = 8
+# reads 4.6e-7. One input more or fewer must move it by more than ten
+# times this
+SERVE_RING_TOL = 1e-4
+# _eager_vs_graph: the positions each of its four runs decodes
+SERVE_PAIR_STEPS = 32
+
+
+def _check_ring(cfg, params, total: int) -> None:
+    """The ring of a windowed model at its real heads, in fp32: layer 0's
+    attention (``attn_decode_apply``, a ring of ``cfg.window`` = W slots)
+    steps ``total`` random inputs of 4 sequences. At every position t >= W,
+    past the wrap, its output must be within ``SERVE_RING_TOL`` of causal
+    attention over exactly the inputs t - W + 1 .. t alone (``attn_apply``
+    with no window, on K4; RoPE scores depend on the distance only). At
+    the last position, attention over the last W - 1 or W + 1 inputs must
+    be more than ten times that away, so the check sees one key too few or
+    too many."""
+    import torch
+
+    from repro_torch.models import layers
+    from repro_torch.tree import tree_map
+
+    cfg32, W = cfg.replace(dtype="float32"), cfg.window
+    p = tree_map(lambda t: t[:, 0], params["blocks"]["attn"])
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn(1, 4, total, cfg.d_model, generator=g, device="cuda")
+    shape = (1, 4, W, cfg.n_kv_heads, cfg.resolved_head_dim)
+    cache = {"k": torch.zeros(shape, device="cuda"), "v": torch.zeros(shape, device="cuda")}
+
+    def last(n: int, t: int) -> torch.Tensor:
+        return layers.attn_apply(x[:, :, t - n + 1:t + 1], p, cfg32, causal=True,
+                                 window=0)[:, :, -1:]
+
+    def rel(a: torch.Tensor, b: torch.Tensor) -> float:
+        return float((a - b).abs().max()) / float(a.abs().max())
+
+    with torch.no_grad():
+        ys = []
+        for t in range(total):
+            y, cache = layers.attn_decode_apply(x[:, :, t:t + 1], p, cfg32, cache,
+                                                torch.tensor(t, device="cuda"), ring=True)
+            ys.append(y)
+        worst = max(rel(ys[t], last(W, t)) for t in range(W, total))
+        off = min(rel(ys[-1], last(n, total - 1)) for n in (W - 1, W + 1))
+    print(f"[serve] ring of {W} at layer 0's heads ({cfg.n_heads}/{cfg.n_kv_heads}, "
+          f"{cfg.resolved_head_dim}), fp32: positions {W}-{total - 1} against attention over "
+          f"exactly their last {W} inputs, max |diff| {worst:.3g} of the output's max; over "
+          f"{W - 1} or {W + 1} inputs {off:.3g}")
+    if not worst <= SERVE_RING_TOL:
+        fail(f"ring decode differs from attention over the last {W} inputs by {worst:.3g}")
+    if not off > 10 * SERVE_RING_TOL:
+        fail(f"one input more or fewer moves the ring's output by {off:.3g} only")
+
+
+def _eager_vs_graph(arch: str, cfg, params, seq) -> None:
+    """The served config's decode of the first ``SERVE_PAIR_STEPS`` tokens
+    of ``seq``, eagerly (``decode_step``, every op launched from the host)
+    and as the CLI decodes (``serve.stepper``, one CUDA-graph replay a
+    step), in turns eager, graph, graph, eager on one card. Prints the
+    steps per second of each (the steps alone, after a sync; set-up and
+    capture not timed); the logits of the two must be equal bit for bit,
+    since a replay runs the eager step's kernels."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    n = SERVE_PAIR_STEPS
+
+    def eager():
+        cache = M.init_cache(cfg, 4, n, device="cuda")
+
+        def step(tok):
+            nonlocal cache
+            logits, cache = M.decode_step(params, cfg, tok, cache)
+            return logits
+        return step
+
+    def graph():
+        step = serve.stepper(cfg, params, 4, n)
+        return lambda tok: step(tok).clone()
+
+    rates, logits = {"eager": [], "graph": []}, {}
+    with torch.no_grad():
+        for mode, make in (("eager", eager), ("graph", graph), ("graph", graph),
+                           ("eager", eager)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            step = make()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = [step(seq[:, :, t]) for t in range(n)]
+            torch.cuda.synchronize()
+            rates[mode].append(n / (time.perf_counter() - t0))
+            got = torch.stack(out)
+            if mode in logits and not torch.equal(got, logits[mode]):
+                fail(f"{arch} serve: two {mode} runs gave other logits")
+            logits[mode] = got
+            del step, out
+    diff = float((logits["graph"].float() - logits["eager"].float()).abs().max())
+    print(f"[serve] {arch}: {n} steps of 4 sequences, eager then graph then graph then eager: "
+          f"eager {rates['eager'][0]:.2f} / {rates['eager'][1]:.2f} steps/s, graph "
+          f"{rates['graph'][0]:.2f} / {rates['graph'][1]:.2f} steps/s (x"
+          f"{sum(rates['graph']) / sum(rates['eager']):.2f}); logits max |graph - eager| {diff}")
+    if diff != 0.0:
+        fail(f"{arch} serve: the CUDA-graph step's logits differ from the eager step's")
+
+
+def phase_serve(arch: str) -> dict:
+    """One serve run (``SERVE_RUNS``) at full width: the port's CLI
+    (``launch/serve.py``) in the config's dtype, which prints tokens per
+    second; the serve path must launch no kernel. With a split tier, the
+    CLI again with ``--split-tier``, which must give the same tokens. Then
+    the eager step against the graph-replayed one (``_eager_vs_graph``) and,
+    for a windowed model, its ring (``_check_ring``). Then the same weights
+    in fp32 decode the run's tokens position by position and ``forward``
+    runs over them at once (attention on K4, windowed for hymba); the
+    decode's logits must be within the run's tolerance of the forward's
+    largest magnitude. The forward's K4 launches join ``SHAPE_LAUNCHES``,
+    and every K4 shape it launched is held against its plain version
+    (``_check_launched``)."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dcor
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_xent as fx
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+
+    n_layers, prompt_len, n_tokens, split_tier, tol = SERVE_RUNS[arch]
+    full = get_config(arch)
+    cfg = full if n_layers is None else full.replace(n_layers=n_layers)
+    total = prompt_len + n_tokens
+    argv = ["--arch", arch, "--full-size", "--batch", "4", "--prompt-len", str(prompt_len),
+            "--tokens", str(n_tokens)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for counts in (fx.LAUNCHES, fa.LAUNCHES, dcor.LAUNCHES):
+        counts.update(forward=0, backward=0)
+    if n_layers is None:
+        seq = serve.main(argv)
+    else:
+        params, prompt = serve.build_model(cfg, batch=4, prompt_len=prompt_len)
+        t0 = time.time()
+        seq = serve.generate(cfg, params, prompt, n_tokens)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        print(f"[serve] {arch} ({n_layers} of {full.n_layers} layers): 4 seqs x {total} steps "
+              f"in {wall:.1f}s ({4 * total / wall:.1f} tok/s); sample: "
+              f"{seq[0, 0, :24].tolist()}")
+        del params
+    launched = [fx.LAUNCHES, fa.LAUNCHES, dcor.LAUNCHES]
+    if any(c["forward"] or c["backward"] for c in launched):
+        fail(f"{arch} serve launched a kernel: {launched}")
+    print(f"[serve] {arch}: {total} positions, {cfg.n_layers} layers, peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, no kernel launched")
+    if split_tier:
+        split = serve.main(argv + ["--split-tier", str(split_tier)])
+        if not torch.equal(split, seq):
+            fail(f"{arch} serve: --split-tier {split_tier} gave other tokens than the "
+                 f"monolithic run")
+        print(f"[serve] {arch}: --split-tier {split_tier} gave the monolithic tokens")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    params, _ = serve.build_model(cfg, batch=4, prompt_len=prompt_len)
+    _eager_vs_graph(arch, cfg, params, seq)
+    if cfg.window:
+        _check_ring(cfg, params, total)
+    cfg32 = cfg.replace(dtype="float32")
+    if cfg.n_experts:      # no token dropped at either group size
+        cfg32 = cfg32.replace(capacity_factor=float(cfg.n_experts))
+    real, seen = moe.route, []
+    moe.route = lambda x, p, c: seen.append(real(x, p, c)) or seen[-1]
+    try:
+        t0 = time.time()
+        step = serve.stepper(cfg32, params, 4, total)
+        captured = seen[-cfg.n_layers:] if cfg.n_experts else []
+        rows, dec_routes = [], []
+        with torch.no_grad():
+            for t in range(total):
+                rows.append(step(seq[:, :, t]).clone())
+                dec_routes.append([topi[0, 0].sort(-1).values for _, _, topi, _ in captured])
+            dec = torch.stack(rows, dim=2)
+            del step, rows
+            torch.cuda.synchronize()
+            dec_s = time.time() - t0
+            _clear_shapes()
+            seen.clear()
+            fwd, _ = M.forward(params, cfg32, {"tokens": seq})
+            _record_shapes()
+    finally:
+        moe.route = real
+    del params
+    # a token whose experts differ between the two (fp32 router logits of
+    # (B, 1, D) and (B, S, D) products sum in other orders; a near-tie
+    # flips) is left out of the comparison and counted
+    flipped = torch.zeros((4, total), dtype=torch.bool, device="cuda")
+    for layer, (_, _, topi, _) in enumerate(seen):
+        want = topi[0].reshape(4, total, -1).sort(-1).values
+        got = torch.stack([routes[layer] for routes in dec_routes], dim=1)
+        flipped |= (got != want).any(-1)
+    err = (dec - fwd).abs()[0].amax(-1)                              # (B, positions)
+    scale = float(fwd.abs().max())
+    kept = err[~flipped]
+    worst = float(kept.max())
+    print(f"[serve] {arch} fp32: decode ({dec_s:.1f} s) against forward over {total} positions: "
+          f"max |diff| {worst:.4g} ({worst / scale:.3g} of the logits' max {scale:.4g}), "
+          f"median over tokens {float(kept.median()):.4g}, last position "
+          f"{float(err[:, -1].max()):.4g}"
+          + (f"; {int(flipped.sum())} of {flipped.numel()} tokens routed to other experts "
+             f"at some layer (max |diff| there "
+             f"{float(err[flipped].max()) if flipped.any() else 0.0:.4g})"
+             if cfg.n_experts else "")
+          + f"; forward launched K4 at {sorted(sh[:7] for sh in fa.SHAPES)}")
+    del dec, fwd, err
+    if not worst <= tol * scale:
+        fail(f"{arch} serve: fp32 decode differs from the forward by {worst} "
+             f"(tolerance {tol} x {scale})")
+    if int(flipped.sum()) > SERVE_MAX_FLIPPED * flipped.numel():
+        fail(f"{arch} serve: {int(flipped.sum())} tokens routed to other experts by the decode")
+    return _check_launched(f"{arch} serve check")
+
+
 def k3_alone(src: Path) -> None:
     """``python3 chip_smoke.py --k3 [SRC]``: K3 alone, from the port under
     SRC (this checkout's ``src`` by default): build it, its build report,
@@ -2906,7 +3295,8 @@ def main() -> None:
            XLSTM_SMALL, "xLSTM token-LM")
     # the LLM configs; each run's need is its reckoning rounded up (an upper
     # bound of what the cohort holds; activations come on top)
-    for label, need in (("granite-3-2b + dcor", 71), ("yi-6b", 76), ("deepseek-moe-16b", 63)):
+    for label, need in (("granite-3-2b + dcor", 71), ("yi-6b", 76), ("deepseek-moe-16b", 63),
+                        ("hymba-1.5b", 64)):
         err = _phase(f"{label} run", need, phase_llm_run, label)
         for name in k34_err:
             k34_err[name] = max(k34_err[name], err[name])
@@ -2916,6 +3306,12 @@ def main() -> None:
         _phase(f"{arch} reference", 1, phase_llm_reference, arch, [])
     _phase("granite-3-2b dcor reference", 1, phase_llm_reference, "granite-3-2b",
            ["--dcor-alpha", "0.5"])
+    # serving: each run's peak allocated, rounded up, plus room
+    for arch, need in (("hymba-1.5b", 10), ("smollm-360m", 4), ("xlstm-350m", 4),
+                       ("deepseek-moe-16b", 56)):
+        err = _phase(f"{arch} serve", need, phase_serve, arch)
+        for name in ("flash_attention_forward", "flash_attention_backward"):
+            k34_err[name] = max(k34_err[name], err[name])
     _phase("population run", 11, phase_population_run)
     _phase("pairing loop run", 2, phase_pairing_loop_run)
     _phase("events run", 7, phase_events_run)
@@ -2954,7 +3350,8 @@ def main() -> None:
         k34_err[name] = max(k34_err[name], err)
     k34 = _phase("K3/K4 times", 15, phase_k3_k4_times, k34_err)
     for e in k34:
-        e["launches"] = k34_launches[e["name"]]
+        if e["launches"] is None:           # the SmolLM-360M path's rows
+            e["launches"] = k34_launches[e["name"]]
     k5 = _phase("K5 times", 3, phase_k5_times, k5_err)
     for e in k5:
         e["launches"] = k35_launches[e["name"]]

@@ -14,13 +14,14 @@ _ARCH_MODULES = {
     "granite-3-2b": "granite_3_2b",
     "yi-6b": "yi_6b",
     "xlstm-350m": "xlstm_350m",
+    "hymba-1.5b": "hymba_1_5b",
     "deepseek-moe-16b": "deepseek_moe_16b",
     "deepseek-67b": "deepseek_67b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "smollm-360m": "smollm_360m",
 }
 # the JAX package's other assigned architectures (repro/configs/__init__.py:12)
-_NOT_YET_PORTED = ("whisper-base", "pixtral-12b", "hymba-1.5b")
+_NOT_YET_PORTED = ("whisper-base", "pixtral-12b")
 
 
 def get_config(name: str) -> ArchConfig:

@@ -118,9 +118,10 @@ class TransformerAdapter:
     """The transformer archs: the dense family (SmolLM-360M, granite-3-2b,
     yi-6b, deepseek-67b), the MoE family (deepseek-moe-16b, llama4-scout;
     each loss adds ``0.01 * moe_aux``, the blocks' load-balance loss, (C,))
-    and the xLSTM family (xLSTM-350M: mLSTM blocks on kernel K5, every
+    the xLSTM family (xLSTM-350M: mLSTM blocks on kernel K5, every
     ``slstm_every``-th an sLSTM block, its ``is_slstm`` flags split and
-    merged with the other stacked leaves). ``dcor_alpha > 0`` adds the §4.4
+    merged with the other stacked leaves) and the hybrid family
+    (hymba-1.5b: windowed attention beside the Mamba heads). ``dcor_alpha > 0`` adds the §4.4
     regularizer to the client loss, between the embedded tokens and the
     uploaded activations (``privacy.dcor``, on kernel K2), as
     ``repro/fed/adapter.py:157-162``."""

@@ -16,8 +16,8 @@ one per forward (the Gram of the upper triangle, split over F, with its
 last block summing the splits and applying the distance epilogue), one per
 backward, and one more forward launch whenever the forward's counter
 buffer is allocated and zeroed (once per device, more only for a larger
-grid). ``SHAPES`` holds each forward launch's (C, B, F); a backward runs at
-its forward's.
+grid). ``SHAPES`` counts the Gram launches by their (C, B, F),
+``BACKWARD_SHAPES`` the backward's launches by the same key.
 
 The forward's counters are shared by its launches on a device, and each
 launch leaves them zero: the port runs K2 on one stream at a time.
@@ -25,6 +25,7 @@ launch leaves them zero: the port runs K2 on one stream at a time.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import NamedTuple
 
 import torch
@@ -33,7 +34,8 @@ from repro_torch.kernels import nvcc
 from repro_torch.kernels.ref import pairwise_dist_bwd_ref, pairwise_dist_ref
 
 LAUNCHES = {"forward": 0, "backward": 0}
-SHAPES: set[tuple] = set()
+SHAPES: Counter = Counter()
+BACKWARD_SHAPES: Counter = Counter()
 _LIB: ctypes.CDLL | None = None
 
 MAX_B = 255 * 32          # kMaxB in the source
@@ -183,7 +185,7 @@ def dist_forward(x: torch.Tensor) -> torch.Tensor:
                                         plan.splits, stream)
     _raise_on(err, "forward")
     LAUNCHES["forward"] += 1  # pdist_fwd
-    SHAPES.add((C, B, F))
+    SHAPES[(C, B, F)] += 1
     return out
 
 
@@ -210,6 +212,7 @@ def dist_backward(x: torch.Tensor, dist: torch.Tensor, g_dist: torch.Tensor) -> 
                                          gx.data_ptr(), C, B, F, stream)
     _raise_on(err, "backward")
     LAUNCHES["backward"] += 1  # pdist_bwd
+    BACKWARD_SHAPES[(C, B, F)] += 1
     return gx
 
 

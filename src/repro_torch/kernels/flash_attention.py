@@ -17,12 +17,14 @@ w.r.t. q, k and v. A CUDA tensor goes to the hand-written kernels
 goes to the plain versions ``kernels/ref.py::attention_ref`` and
 ``attention_bwd_ref``. Anything else raises. ``LAUNCHES`` counts kernel
 launches on the device: one per forward; two per backward (dQ with the
-row terms D, then dK and dV). ``SHAPES`` holds each forward launch's
-(N, S, H, KV, hd, causal, window, dtype); a backward runs at its forward's.
+row terms D, then dK and dV). ``SHAPES`` counts the forward's launches by
+their (N, S, H, KV, hd, causal, window, dtype), ``BACKWARD_SHAPES`` the
+backward's by the same key.
 """
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 import math
 
 import torch
@@ -31,7 +33,8 @@ from repro_torch.kernels import nvcc
 from repro_torch.kernels.ref import attention_bwd_ref, attention_ref
 
 LAUNCHES = {"forward": 0, "backward": 0}
-SHAPES: set[tuple] = set()
+SHAPES: Counter = Counter()
+BACKWARD_SHAPES: Counter = Counter()
 _LIB: ctypes.CDLL | None = None
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 128
@@ -111,7 +114,7 @@ def attn_forward(q, k, v, *, causal: bool, window: int = 0) -> tuple[torch.Tenso
             int(q.dtype == torch.bfloat16), stream)
     _raise_on(err, "forward")
     LAUNCHES["forward"] += 1  # flash_fwd
-    SHAPES.add((N, S, H, k.shape[2], hd, causal, window, q.dtype))
+    SHAPES[(N, S, H, k.shape[2], hd, causal, window, q.dtype)] += 1
     return o, lse
 
 
@@ -142,6 +145,7 @@ def attn_backward(q, k, v, o, lse, do, *, causal: bool, window: int = 0):
             int(q.dtype == torch.bfloat16), stream)
     _raise_on(err, "backward")
     LAUNCHES["backward"] += 2  # flash_bwd_dq, then flash_bwd_dkdv
+    BACKWARD_SHAPES[(N, S, H, k.shape[2], hd, causal, window, q.dtype)] += 2
     return dq, dk, dv
 
 

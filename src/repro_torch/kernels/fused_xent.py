@@ -19,12 +19,13 @@ row (split over up to 8 warps at small T, packed several rows a warp at
 small V) and blocks. The backward writes dlogits at the logits' offset
 from a 16-byte boundary, so both share the row's cut. ``LAUNCHES``
 counts kernel launches on the device: one per forward, one per backward.
-``SHAPES`` holds each forward launch's (T, V, dtype); a backward runs at
-its forward's.
+``SHAPES`` counts the forward's launches by their (T, V, dtype),
+``BACKWARD_SHAPES`` the backward's by the same key.
 """
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import NamedTuple
 
 import torch
@@ -33,7 +34,8 @@ from repro_torch.kernels import nvcc
 from repro_torch.kernels.ref import fused_xent_bwd_ref, fused_xent_ref
 
 LAUNCHES = {"forward": 0, "backward": 0}
-SHAPES: set[tuple] = set()
+SHAPES: Counter = Counter()
+BACKWARD_SHAPES: Counter = Counter()
 _LIB: ctypes.CDLL | None = None
 DTYPES = (torch.float32, torch.bfloat16)
 THREADS = 256          # a block of either kernel (kThreads in the source)
@@ -151,7 +153,7 @@ def xent_forward(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Tens
                                      shape.blocks, stream)
     _raise_on(err, "forward")
     LAUNCHES["forward"] += 1  # xent_fwd
-    SHAPES.add((T, V, logits.dtype))
+    SHAPES[(T, V, logits.dtype)] += 1
     return loss, lse
 
 
@@ -182,6 +184,7 @@ def xent_backward(logits: torch.Tensor, labels: torch.Tensor, lse: torch.Tensor,
                                       shape.blocks, stream)
     _raise_on(err, "backward")
     LAUNCHES["backward"] += 1  # xent_bwd
+    BACKWARD_SHAPES[(T, V, logits.dtype)] += 1
     return out
 
 

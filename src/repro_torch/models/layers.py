@@ -9,8 +9,10 @@ default), norm and softmax statistics in fp32, RoPE in fp32 and cast back.
 hand-written CUDA kernels for a CUDA tensor, their plain version for a CPU
 tensor. It takes k and v at KV heads, in the JAX package's grouped form
 (``q.reshape(B, Sq, KV, G, hd)``, ``layers.py:136``): query head h reads
-KV head h // G. Decode, cross-attention and the sharding context come with
-the serving path; one device needs no ``constrain``.
+KV head h // G. One-token decoding (``decode_attention``,
+``attn_decode_apply``) is torch ops, as the JAX package's is plain ``jnp``:
+the serving path launches no kernel. Cross-attention comes with the
+encoder-decoder family; one device needs no ``constrain``.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention
 
 Params = dict
+_NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 
 def cdtype(cfg) -> torch.dtype:
@@ -106,6 +109,29 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return flash_attention(q, k, v, causal=causal, window=window)
 
 
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     pos: torch.Tensor, *, ring: bool) -> torch.Tensor:
+    """One token's attention against a KV cache (``repro/models/layers.py:179``).
+
+    q (N, 1, H, hd); caches (N, W, KV, hd); ``pos`` () int64 on the
+    device, the absolute position of the current token, already written
+    into the cache. Under ``ring`` the cache is a ring buffer of the last W
+    positions (slot ``pos % W``), else slot i holds position i. Scores are
+    fp32 products of the inputs, the probabilities cast to v's dtype
+    before the product with v."""
+    N, _, H, hd = q.shape
+    W, KV = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(N, 1, KV, H // KV, hd).float()
+    s = torch.einsum("nqkgd,nskd->nkgqs", qg, k_cache.float()) * (1.0 / math.sqrt(hd))
+    slots = torch.arange(W, device=q.device)
+    # a ring holds pos + 1 live slots before it wraps, and all W after
+    valid = slots <= (torch.clamp_max(pos, W - 1) if ring else pos)
+    s = torch.where(valid, s, _NEG_INF)
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("nkgqs,nskd->nqkgd", p, v_cache)                # (N, 1, KV, G, hd)
+    return out.reshape(N, 1, H, hd)
+
+
 def client_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(C, ..., d_in) @ (C, d_in, d_out) -> (C, ..., d_out), one batched product."""
     C = x.shape[0]
@@ -129,6 +155,32 @@ def attn_apply(x: torch.Tensor, p: Params, cfg, *, causal: bool = True,
     w = cfg.window if window is None else window
     out = attention(q, k, v, causal=causal, window=w or 0)
     return client_mm(out.reshape(C, B, S, -1), p["wo"].to(dt)).to(x.dtype)
+
+
+def attn_decode_apply(x: torch.Tensor, p: Params, cfg, cache: Params, pos: torch.Tensor, *,
+                      ring: bool) -> tuple[torch.Tensor, Params]:
+    """One-token self-attention, x (C, B, 1, D) (``repro/models/layers.py:245``).
+    Writes the token's k and v into slot ``pos`` of the cache's k and v
+    (C, B, W, KV, hd) in place (``pos % W`` under ``ring``) and returns
+    (y, the cache)."""
+    C, B = x.shape[:2]
+    hd = cfg.resolved_head_dim
+    dt = cdtype(cfg)
+    xv = x.to(dt)
+
+    def proj(w):
+        return client_mm(xv, w.to(dt)).reshape(C * B, 1, -1, hd)
+
+    q = apply_rope(proj(p["wq"]), pos.view(1), cfg.rope_theta)
+    k = apply_rope(proj(p["wk"]), pos.view(1), cfg.rope_theta)
+    v = proj(p["wv"])
+    W = cache["k"].shape[2]
+    slot = (pos % W if ring else pos).view(1)
+    for name, t in (("k", k), ("v", v)):
+        cache[name].index_copy_(2, slot, t.reshape(C, B, 1, -1, hd).to(cache[name].dtype))
+    out = decode_attention(q, cache["k"].reshape((C * B,) + cache["k"].shape[2:]),
+                           cache["v"].reshape((C * B,) + cache["v"].shape[2:]), pos, ring=ring)
+    return client_mm(out.reshape(C, B, 1, -1), p["wo"].to(dt)).to(x.dtype), cache
 
 
 # ---------------------------------------------------------------------------

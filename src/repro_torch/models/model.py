@@ -1,6 +1,6 @@
 """Public model API of the transformer (pair: ``repro/models/model.py:1``).
 
-Dense, MoE and xLSTM families. The parameter tree keeps the JAX package's keys, with
+Dense, MoE, xLSTM and hybrid families. The parameter tree keeps the JAX package's keys, with
 the blocks stacked on a layer axis so a DTFL tier splits it by slicing
 (``core/tiering.py``)::
 
@@ -16,6 +16,15 @@ leading client axis C on the parameters and on the batch: tokens (C, B, S)
 int32, and the MoE load-balance loss they return is (C,), one per client
 (0.0 for the families without one). ``count_params_analytic`` counts the
 shapes of ``init`` built on the meta device.
+
+Decoding (``init_cache``, ``decode_step``) keeps the client axis: a served
+model is C = 1. The cache is ``{"layers": [one dict a layer], "pos": ()
+int64}``; a step writes its k and v into the cache in place and returns
+the new states and position. The position lives on the device and an
+xLSTM layer's cell is read from its cache, so a step reads nothing back
+from the device. ``client_decode`` and ``server_decode`` are the two
+halves of a step under a DTFL split, as ``client_forward`` and
+``server_forward`` are of the forward.
 """
 from __future__ import annotations
 
@@ -109,13 +118,13 @@ def count_params_analytic(cfg, active_only: bool = False) -> int:
     its total; an MoE layer uses ``top_k`` of its routed experts, so the
     other experts' three matrices are taken off; an xLSTM stack holds both
     cells in every layer and uses one, so the unused cell of each layer is
-    taken off."""
+    taken off; a hybrid block uses all of its parameters."""
     total = _tree_size(init(None, cfg, device="meta"))
     if active_only and cfg.family == "moe":
         per_expert = 3 * cfg.d_model * cfg.d_ff
         total -= (cfg.n_experts - cfg.top_k) * cfg.n_layers * per_expert
     if active_only and cfg.family == "ssm" and cfg.slstm_every:
-        n_sl = sum(1 for i in range(cfg.n_layers) if i % cfg.slstm_every == cfg.slstm_every - 1)
+        n_sl = sum(1 for i in range(cfg.n_layers) if tfm.is_slstm_layer(cfg, i))
         block = tfm.block_init(None, cfg, device="meta")
         m_sz, s_sz = _tree_size(block["mlstm"]), _tree_size(block["slstm"])
         total -= n_sl * m_sz + (cfg.n_layers - n_sl) * s_sz
@@ -124,3 +133,75 @@ def count_params_analytic(cfg, active_only: bool = False) -> int:
 
 def _tree_size(tree) -> int:
     return sum(int(math.prod(t.shape)) for t in tree_leaves(tree))
+
+
+# ---------------------------------------------------------------------------
+# decode (serving), pair: ``repro/models/model.py:159-201``
+# ---------------------------------------------------------------------------
+
+def cache_len_for(cfg, seq_len: int, *, long_context: bool) -> int:
+    if long_context and cfg.serve_window:
+        return min(seq_len, cfg.serve_window)
+    if cfg.window:
+        return min(seq_len, cfg.window)
+    return seq_len
+
+
+def init_cache(cfg, batch_size: int, seq_len: int, *, device="cpu") -> Params:
+    """Empty caches of ``cfg.n_layers`` layers for ``batch_size`` sequences
+    of up to ``seq_len`` tokens; attention keeps ``cache_len_for`` slots,
+    an xLSTM layer the state of its cell (``tfm.is_slstm_layer``)."""
+    W = cache_len_for(cfg, seq_len, long_context=False)
+    layers = [tfm.block_cache_init(cfg, batch_size, W, slstm=tfm.is_slstm_layer(cfg, i),
+                                   device=device)
+              for i in range(cfg.n_layers)]
+    return {"layers": layers, "pos": torch.zeros((), dtype=torch.int64, device=device)}
+
+
+def _decode_blocks(blocks: Params, cfg, x: torch.Tensor, cache: Params
+                   ) -> tuple[torch.Tensor, Params]:
+    pos = cache["pos"]
+    ring = _is_ring(cfg, _attn_cache_len(cache))
+    x, layers, _ = tfm.stack_decode(x, blocks, cache["layers"], cfg, pos, ring=ring)
+    return x, {"layers": layers, "pos": pos + 1}
+
+
+def _embed_token(params: Params, cfg, token: torch.Tensor) -> torch.Tensor:
+    return embed_tokens(params, cfg, {"tokens": token[..., None]})     # (C, B, 1, D)
+
+
+def decode_step(params: Params, cfg, token: torch.Tensor, cache: Params
+                ) -> tuple[torch.Tensor, Params]:
+    """``token`` (C, B) int, the tokens at position ``cache["pos"]``.
+    Returns (logits (C, B, V), the cache with pos + 1)."""
+    x = _embed_token(params, cfg, token)
+    x, cache = _decode_blocks(params["blocks"], cfg, x, cache)
+    return lm_logits(params, cfg, x)[:, :, 0], cache
+
+
+def client_decode(client_params: Params, cfg, token: torch.Tensor, cache: Params
+                  ) -> tuple[torch.Tensor, Params]:
+    """Embed + the client's blocks for one token: (z (C, B, 1, D), cache)."""
+    x = _embed_token(client_params, cfg, token)
+    return _decode_blocks(client_params["blocks"], cfg, x, cache)
+
+
+def server_decode(server_params: Params, cfg, z: torch.Tensor, cache: Params
+                  ) -> tuple[torch.Tensor, Params]:
+    """The remaining blocks + head on the client's z: (logits (C, B, V), cache)."""
+    x, cache = _decode_blocks(server_params["blocks"], cfg, z, cache)
+    return lm_logits(server_params, cfg, x)[:, :, 0], cache
+
+
+def _attn_cache_len(cache: Params) -> int | None:
+    layers = cache["layers"]
+    if layers and "k" in layers[0]:
+        return layers[0]["k"].shape[2]
+    return None
+
+
+def _is_ring(cfg, cache_len: int | None) -> bool:
+    if cache_len is None:
+        return False
+    w = cfg.window or cfg.serve_window
+    return bool(w) and cache_len <= w

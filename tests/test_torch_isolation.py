@@ -98,7 +98,7 @@ def test_unported_options_fail_loudly(capsys, tmp_path):
         1, eval_batch, engine="async", n_groups=2)) == 3
     capsys.readouterr()
     # options still to port: names fail at parse time, the mesh when built
-    for extra in (["--arch", "hymba-1.5b"], ["--arch", "pixtral-12b"], ["--exec", "sharded"]):
+    for extra in (["--arch", "whisper-base"], ["--arch", "pixtral-12b"], ["--exec", "sharded"]):
         with pytest.raises(SystemExit):
             train.build_parser().parse_args(extra)
         assert "not yet ported" in capsys.readouterr().err, extra
@@ -122,9 +122,9 @@ def test_transformer_cli_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch, 
         TransformerAdapter(get_config("smollm-360m").reduced().replace(family="encdec"),
                            seq_len=16).init_global(torch.Generator())
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_config("hymba-1.5b")
+        get_config("whisper-base")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        TransformerAdapter(get_config("smollm-360m").reduced().replace(family="hybrid"),
+        TransformerAdapter(get_config("smollm-360m").reduced().replace(family="vlm"),
                            seq_len=16).init_global(torch.Generator())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
