@@ -15,8 +15,8 @@ port's adapter, clients, env and trainer as ``repro/api.py:542-624`` does
 (the same data, profile and participant streams), and exposes ``run()`` /
 ``save()`` / ``resume()``. ``device`` is not a spec field and never enters
 the hash; the run goes to the card unless ``device="cpu"``. A spec naming
-a component the port does not have yet (an unported arch, the sharded
-plane) validates and hashes, and building it raises
+a component the port does not have yet (the sharded plane) validates and
+hashes, and building it raises
 ``NotImplementedError("... not yet ported")``. The spec stamps every
 checkpoint envelope (hash + canonical JSON), so ``resume()`` can verify it
 continues the same experiment.

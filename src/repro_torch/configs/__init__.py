@@ -1,8 +1,7 @@
 """Model configs of the port (pair: ``repro/configs/``).
 
-``get_config(name)`` as in ``repro/configs/__init__.py:33``: the assigned
-architectures the port runs so far; the others raise "not yet ported".
-The paper's ResNets live in ``configs/resnet_cifar.py``.
+``get_config(name)`` as in ``repro/configs/__init__.py:33``: every assigned
+architecture. The paper's ResNets live in ``configs/resnet_cifar.py``.
 """
 from __future__ import annotations
 
@@ -19,15 +18,12 @@ _ARCH_MODULES = {
     "deepseek-67b": "deepseek_67b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "smollm-360m": "smollm_360m",
+    "whisper-base": "whisper_base",
+    "pixtral-12b": "pixtral_12b",
 }
-# the JAX package's other assigned architectures (repro/configs/__init__.py:12)
-_NOT_YET_PORTED = ("whisper-base", "pixtral-12b")
 
 
 def get_config(name: str) -> ArchConfig:
-    if name in _NOT_YET_PORTED:
-        raise NotImplementedError(f"arch {name!r} is not yet ported; "
-                                  f"ported: {sorted(_ARCH_MODULES)}")
     if name not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_ARCH_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[name]}")

@@ -18,7 +18,6 @@ class ArchConfig:
 
     ``family`` selects the forward implementation:
       dense | moe | ssm | hybrid | encdec (audio) | vlm
-    (the port runs ``dense``, ``moe``, ``ssm`` and ``hybrid`` so far).
     """
 
     name: str

@@ -121,7 +121,10 @@ class TransformerAdapter:
     the xLSTM family (xLSTM-350M: mLSTM blocks on kernel K5, every
     ``slstm_every``-th an sLSTM block, its ``is_slstm`` flags split and
     merged with the other stacked leaves) and the hybrid family
-    (hymba-1.5b: windowed attention beside the Mamba heads). ``dcor_alpha > 0`` adds the §4.4
+    (hymba-1.5b: windowed attention beside the Mamba heads). The
+    encoder-decoder and VLM families (whisper-base, pixtral-12b) build, and
+    their first step raises ``KeyError: 'frontend'`` as the JAX package's
+    does: the LM batches carry tokens and labels only. ``dcor_alpha > 0`` adds the §4.4
     regularizer to the client loss, between the embedded tokens and the
     uploaded activations (``privacy.dcor``, on kernel K2), as
     ``repro/fed/adapter.py:157-162``."""

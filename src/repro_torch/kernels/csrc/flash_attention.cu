@@ -18,7 +18,12 @@
 // does. lse and D are (N, H, S) fp32. Types fp32 or bf16 (one for all of q,
 // k, v); statistics, accumulators and the scores fp32. Any S (the ragged
 // tail is masked: keys >= S score -inf, rows >= S are not written), any
-// hd <= 128 (staged zero-padded to 32, 64 or 128). The plain versions are
+// hd <= 128 (staged zero-padded to 32, 64 or 128). The forward also takes
+// hd up to 160 (pixtral-12b's heads; rows of 168 bf16, 336 bytes, still
+// 16-byte multiples for cp.async and ldmatrix, and 21 16-byte groups, odd,
+// so ldmatrix stays conflict-free) and k, v of their own length Sk
+// (N, Sk, KV, hd) without a mask: the decoder's cross-attention over the
+// encoder's output; keys >= Sk score -inf. The plain versions are
 // src/repro_torch/kernels/ref.py::attention_ref and ::attention_bwd_ref.
 //
 // Bound. On the path (N*H = 16*15, S = 512, hd = 64, causal, bf16) the
@@ -99,8 +104,10 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-__device__ __forceinline__ bool visible(int qpos, int kpos, int S, int causal, int window) {
-  return qpos < S && kpos < S && (!causal || qpos >= kpos) && (!window || qpos - kpos < window);
+// Sq != Sk only for cross-attention, which has neither causality nor a window
+__device__ __forceinline__ bool visible(int qpos, int kpos, int Sq, int Sk, int causal,
+                                        int window) {
+  return qpos < Sq && kpos < Sk && (!causal || qpos >= kpos) && (!window || qpos - kpos < window);
 }
 
 // Stage rows [r0, r0 + 64) of one head into sm (64 x (HD + 1) fp32), zero
@@ -131,7 +138,7 @@ constexpr int dkdv_smem() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads) flash_fwd(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, float* __restrict__ lse, int S, int H, int KV, int hd, int causal,
+    T* __restrict__ o, float* __restrict__ lse, int S, int Sk, int H, int KV, int hd, int causal,
     int window, float scale) {
   constexpr int LD = HD + 1, ND = HD / 16;
   extern __shared__ float smem[];
@@ -145,8 +152,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(
   const long long qstride = static_cast<long long>(H) * hd;
   const long long kstride = static_cast<long long>(KV) * hd;
   const T* qb = q + (static_cast<long long>(n) * S * H + h) * hd;
-  const T* kb = k + (static_cast<long long>(n) * S * KV + kvh) * hd;
-  const T* vb = v + (static_cast<long long>(n) * S * KV + kvh) * hd;
+  const T* kb = k + (static_cast<long long>(n) * Sk * KV + kvh) * hd;
+  const T* vb = v + (static_cast<long long>(n) * Sk * KV + kvh) * hd;
 
   stage<T, HD>(sQ, qb, qstride, q0, S, hd);
   float m[4], l[4], acc[4][ND];
@@ -158,12 +165,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(
     for (int dd = 0; dd < ND; ++dd) acc[i][dd] = 0.f;
   }
 
-  const int k_end = causal ? min(S, q0 + kBQ) : S;
+  const int k_end = causal ? min(Sk, q0 + kBQ) : Sk;
   const int k_begin = window ? max(0, q0 - window + 1) : 0;
   for (int k0 = (k_begin / kBK) * kBK; k0 < k_end; k0 += kBK) {
     __syncthreads();   // the previous tile's sK, sV, sP are consumed
-    stage<T, HD>(sK, kb, kstride, k0, S, hd);
-    stage<T, HD>(sV, vb, kstride, k0, S, hd);
+    stage<T, HD>(sK, kb, kstride, k0, Sk, hd);
+    stage<T, HD>(sV, vb, kstride, k0, Sk, hd);
     __syncthreads();
 
     float s[4][4];
@@ -190,7 +197,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const bool ok = visible(qpos, k0 + tc + 16 * j, S, causal, window);
+        const bool ok = visible(qpos, k0 + tc + 16 * j, S, Sk, causal, window);
         s[i][j] = ok ? s[i][j] * scale : -INFINITY;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -325,7 +332,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq(
       const int qpos = q0 + tr * 4 + i;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const bool ok = visible(qpos, k0 + tc + 16 * j, S, causal, window);
+        const bool ok = visible(qpos, k0 + tc + 16 * j, S, S, causal, window);
         const float p = ok ? expf(s[i][j] * scale - lrow[i]) : 0.f;
         sdS[(tr * 4 + i) * (kBK + 1) + tc + 16 * j] = p * (dp[i][j] - Drow[i]);
       }
@@ -441,7 +448,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv(
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int qi = tc + 16 * j;
-          const bool ok = visible(q0 + qi, kpos, S, causal, window);
+          const bool ok = visible(q0 + qi, kpos, S, S, causal, window);
           const float p = ok ? expf(s[i][j] * scale - sL[qi]) : 0.f;
           sPt[(tr * 4 + i) * (kBQ + 1) + qi] = round_to<T>(p);
           sdSt[(tr * 4 + i) * (kBQ + 1) + qi] = p * (dp[i][j] - sD[qi]);
@@ -623,9 +630,9 @@ __device__ __forceinline__ void acc_to_tile(bf16* sm, const float (&acc)[HD / 8]
   }
 }
 
-// does the mask cut the (q0, k0) tile pair (or its ragged edge)?
-__device__ __forceinline__ bool cut(int q0, int k0, int S, int causal, int window) {
-  return q0 + kB > S || k0 + kB > S || (causal && k0 + kB - 1 > q0) ||
+// does the mask cut the (q0, k0) tile pair (or its ragged edges)?
+__device__ __forceinline__ bool cut(int q0, int k0, int Sq, int Sk, int causal, int window) {
+  return q0 + kB > Sq || k0 + kB > Sk || (causal && k0 + kB - 1 > q0) ||
          (window && q0 + kB - 1 - k0 >= window);
 }
 
@@ -657,7 +664,7 @@ __device__ __forceinline__ void frag_split(uint32_t (&hi)[4], uint32_t (&lo)[4],
 template <int HD>
 __global__ void __launch_bounds__(kThreads) flash_mma_fwd(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ o, float* __restrict__ lse, int N, int S, int H, int KV, int hd,
+    bf16* __restrict__ o, float* __restrict__ lse, int N, int S, int Sk, int H, int KV, int hd,
     int causal, int window, float scale, int vec) {
   constexpr int LD = ld<HD>(), NT = HD / 8, KS = HD / 16, T = kB * LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -671,15 +678,15 @@ __global__ void __launch_bounds__(kThreads) flash_mma_fwd(
   const long long qstride = static_cast<long long>(H) * hd;
   const long long kstride = static_cast<long long>(KV) * hd;
   const bf16* qb = q + (static_cast<long long>(n) * S * H + h) * hd;
-  const bf16* kb = k + (static_cast<long long>(n) * S * KV + kvh) * hd;
-  const bf16* vb = v + (static_cast<long long>(n) * S * KV + kvh) * hd;
+  const bf16* kb = k + (static_cast<long long>(n) * Sk * KV + kvh) * hd;
+  const bf16* vb = v + (static_cast<long long>(n) * Sk * KV + kvh) * hd;
 
-  const int k_end = causal ? min(S, q0 + kB) : S;
+  const int k_end = causal ? min(Sk, q0 + kB) : Sk;
   const int kt0 = (window ? max(0, q0 - window + 1) : 0) / kB;
   const int nk = (k_end + kB - 1) / kB - kt0;
   load_tile<HD>(sQ, qb, qstride, q0, S, hd, vec);
-  load_tile<HD>(sK, kb, kstride, kt0 * kB, S, hd, vec);
-  load_tile<HD>(sV, vb, kstride, kt0 * kB, S, hd, vec);
+  load_tile<HD>(sK, kb, kstride, kt0 * kB, Sk, hd, vec);
+  load_tile<HD>(sV, vb, kstride, kt0 * kB, Sk, hd, vec);
   cp_commit();
 
   uint32_t qf[KS][4];
@@ -694,8 +701,8 @@ __global__ void __launch_bounds__(kThreads) flash_mma_fwd(
     const bf16* cK = sK + (it & 1) * T;
     const bf16* cV = sV + (it & 1) * T;
     if (it + 1 < nk) {          // the next tile flies while this one is computed
-      load_tile<HD>(sK + ((it + 1) & 1) * T, kb, kstride, k0 + kB, S, hd, vec);
-      load_tile<HD>(sV + ((it + 1) & 1) * T, vb, kstride, k0 + kB, S, hd, vec);
+      load_tile<HD>(sK + ((it + 1) & 1) * T, kb, kstride, k0 + kB, Sk, hd, vec);
+      load_tile<HD>(sV + ((it + 1) & 1) * T, vb, kstride, k0 + kB, Sk, hd, vec);
       cp_commit();
       cp_wait<1>();
     } else {
@@ -724,7 +731,7 @@ __global__ void __launch_bounds__(kThreads) flash_mma_fwd(
     // online softmax over the tile, statistics in registers: m is the raw
     // row max, p = 2^(s sl2 - m sl2) with sl2 = scale log2(e), one FFMA and
     // one EX2 an element
-    const bool masked = cut(q0, k0, S, causal, window);
+    const bool masked = cut(q0, k0, S, Sk, causal, window);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float mx = m[r];
@@ -733,7 +740,7 @@ __global__ void __launch_bounds__(kThreads) flash_mma_fwd(
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           float& x = s[nt][2 * r + e];
-          if (masked && !visible(row0 + 8 * r, k0 + nt * 8 + 2 * t + e, S, causal, window))
+          if (masked && !visible(row0 + 8 * r, k0 + nt * 8 + 2 * t + e, S, Sk, causal, window))
             x = -INFINITY;
           mx = fmaxf(mx, x);
         }
@@ -912,14 +919,14 @@ __global__ void __launch_bounds__(kThreads) flash_mma_bwd_dq(
       }
     }
     // dS = P (dP - D), P = exp(s scale - lse), in fp32 (into s)
-    const bool masked = cut(q0, k0, S, causal, window);
+    const bool masked = cut(q0, k0, S, S, causal, window);
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = i >> 1;
         const bool ok =
-            !masked || visible(row0 + 8 * r, k0 + nt * 8 + 2 * t + (i & 1), S, causal, window);
+            !masked || visible(row0 + 8 * r, k0 + nt * 8 + 2 * t + (i & 1), S, S, causal, window);
         const float p = ok ? exp2f(fmaf(s[nt][i], sl2, -lrow[r])) : 0.f;
         s[nt][i] = p * (dp[nt][i] - Drow[r]);
       }
@@ -1037,13 +1044,13 @@ __global__ void __launch_bounds__(kThreads) flash_mma_bwd_dkdv(
       }
     }
     // P^T (into s) and dS^T = P^T (dP^T - D) (into dp), fp32
-    const bool masked = cut(q0, k0, S, causal, window);
+    const bool masked = cut(q0, k0, S, S, causal, window);
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int qi = nt * 8 + 2 * t + (i & 1);
-        const bool ok = !masked || visible(q0 + qi, key0 + 8 * (i >> 1), S, causal, window);
+        const bool ok = !masked || visible(q0 + qi, key0 + 8 * (i >> 1), S, S, causal, window);
         const float p = ok ? exp2f(fmaf(s[nt][i], sl2, -cL[qi] * kLog2e)) : 0.f;
         s[nt][i] = p;
         dp[nt][i] = p * (dp[nt][i] - cD[qi]);
@@ -1079,14 +1086,19 @@ __global__ void __launch_bounds__(kThreads) flash_mma_bwd_dkdv(
 
 }  // namespace tc
 
-bool dims_ok(long long N, long long S, long long H, long long KV, long long hd) {
-  return N >= 1 && N <= 65535 && S >= 1 && S <= 0x7fffffffLL - kBQ && H >= 1 && H <= 65535 &&
-         KV >= 1 && H % KV == 0 && hd >= 1 && hd <= 128 && N * S * H * hd < (1LL << 62);
+// the forward takes hd up to 160, the backward up to 128
+bool dims_ok(long long N, long long S, long long Sk, long long H, long long KV, long long hd,
+             long long max_hd) {
+  return N >= 1 && N <= 65535 && S >= 1 && S <= 0x7fffffffLL - kBQ && Sk >= 1 &&
+         Sk <= 0x7fffffffLL - kBK && H >= 1 && H <= 65535 && KV >= 1 && H % KV == 0 &&
+         hd >= 1 && hd <= max_hd && N * S * H * hd < (1LL << 62) &&
+         N * Sk * KV * hd < (1LL << 62);
 }
 
 template <typename T, int HD>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int N, int S,
-               int H, int KV, int hd, int causal, int window, float scale, cudaStream_t st) {
+               int Sk, int H, int KV, int hd, int causal, int window, float scale,
+               cudaStream_t st) {
   constexpr int smem = fwd_smem<HD>();
   // once per instantiation, at the first call (before any CUDA-graph
   // capture; the port drives one device)
@@ -1096,7 +1108,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
   const dim3 grid((S + kBQ - 1) / kBQ, H, N);
   flash_fwd<T, HD><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, S, H, KV, hd, causal, window, scale);
+      static_cast<T*>(o), lse, S, Sk, H, KV, hd, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1144,7 +1156,7 @@ bool mma_grid(long long tiles, long long heads, unsigned* blocks) {
 
 template <int HD>
 int launch_fwd_mma(const void* q, const void* k, const void* v, void* o, float* lse, int N,
-                   int S, int H, int KV, int hd, int causal, int window, float scale,
+                   int S, int Sk, int H, int KV, int hd, int causal, int window, float scale,
                    cudaStream_t st) {
   using tc::bf16;
   constexpr int smem = tc::fwd_smem<HD>();
@@ -1157,7 +1169,7 @@ int launch_fwd_mma(const void* q, const void* k, const void* v, void* o, float* 
   const int vec = hd % 8 == 0 && aligned16({q, k, v, o});
   tc::flash_mma_fwd<HD><<<blocks, tc::kThreads, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), lse, N, S, H, KV, hd, causal, window, scale, vec);
+      static_cast<bf16*>(o), lse, N, S, Sk, H, KV, hd, causal, window, scale, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1199,30 +1211,36 @@ int launch_bwd_mma(const void* q, const void* k, const void* v, const void* o, c
 
 }  // namespace
 
-// q, o: (N, S, H, hd); k, v: (N, S, KV, hd), one dtype (0 fp32, 1 bf16),
+// q, o: (N, S, H, hd); k, v: (N, Sk, KV, hd), one dtype (0 fp32, 1 bf16),
 // contiguous; lse: (N, H, S) fp32; scale the fp32 of 1 / sqrt(hd), as the
-// caller computes it. Launches flash_fwd on `stream`; does
-// not synchronise. Returns a cudaError_t.
+// caller computes it. Sk != S (cross-attention) takes causal = 0 and
+// window = 0; hd up to 160. Launches flash_fwd on `stream`; does not
+// synchronise. Returns a cudaError_t.
 extern "C" int flash_attention_forward(const void* q, const void* k, const void* v, void* o,
-                                       float* lse, long long N, long long S, long long H,
-                                       long long KV, long long hd, int causal, long long window,
-                                       float scale, int bf16, void* stream) {
-  if (!dims_ok(N, S, H, KV, hd) || window < 0 || window > 0x7fffffffLL)
+                                       float* lse, long long N, long long S, long long Sk,
+                                       long long H, long long KV, long long hd, int causal,
+                                       long long window, float scale, int bf16, void* stream) {
+  if (!dims_ok(N, S, Sk, H, KV, hd, 160) || window < 0 || window > 0x7fffffffLL ||
+      (Sk != S && (causal || window)))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n = static_cast<int>(N), s = static_cast<int>(S), h = static_cast<int>(H),
-            kv = static_cast<int>(KV), d = static_cast<int>(hd), w = static_cast<int>(window);
-#define FWD(T, HD) launch_fwd<T, HD>(q, k, v, o, lse, n, s, h, kv, d, causal, w, scale, st)
-#define FWD_MMA(HD) launch_fwd_mma<HD>(q, k, v, o, lse, n, s, h, kv, d, causal, w, scale, st)
+  const int n = static_cast<int>(N), s = static_cast<int>(S), sk = static_cast<int>(Sk),
+            h = static_cast<int>(H), kv = static_cast<int>(KV), d = static_cast<int>(hd),
+            w = static_cast<int>(window);
+#define FWD(T, HD) launch_fwd<T, HD>(q, k, v, o, lse, n, s, sk, h, kv, d, causal, w, scale, st)
+#define FWD_MMA(HD) \
+  launch_fwd_mma<HD>(q, k, v, o, lse, n, s, sk, h, kv, d, causal, w, scale, st)
   if (bf16) {
     if (hd <= 32) return FWD_MMA(32);
     if (hd <= 64) return FWD_MMA(64);
-    return FWD_MMA(128);
+    if (hd <= 128) return FWD_MMA(128);
+    return FWD_MMA(160);
   }
 #undef FWD_MMA
   if (hd <= 32) return FWD(float, 32);
   if (hd <= 64) return FWD(float, 64);
-  return FWD(float, 128);
+  if (hd <= 128) return FWD(float, 128);
+  return FWD(float, 160);
 #undef FWD
 }
 
@@ -1235,7 +1253,7 @@ extern "C" int flash_attention_backward(const void* q, const void* k, const void
                                         long long S, long long H, long long KV, long long hd,
                                         int causal, long long window, float scale, int bf16,
                                         void* stream) {
-  if (!dims_ok(N, S, H, KV, hd) || window < 0 || window > 0x7fffffffLL)
+  if (!dims_ok(N, S, S, H, KV, hd, 128) || window < 0 || window > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n = static_cast<int>(N), s = static_cast<int>(S), h = static_cast<int>(H),
@@ -1259,16 +1277,19 @@ extern "C" int flash_attention_backward(const void* q, const void* k, const void
 }
 
 // Dynamic shared memory of a bf16 kernel (0 forward, 1 dQ, 2 dK/dV) at the
-// head dim hd, in bytes; the fp32 kernels' likewise (bf16 = 0).
+// head dim hd, in bytes; the fp32 kernels' likewise (bf16 = 0); -1 for a
+// kernel not built at that hd (the backward above 128).
 extern "C" int flash_attention_smem_bytes(int kernel, long long hd, int bf16) {
-  const int i = hd <= 32 ? 0 : hd <= 64 ? 1 : 2;
+  const int i = hd <= 32 ? 0 : hd <= 64 ? 1 : hd <= 128 ? 2 : 3;
+  if (kernel != 0 && i == 3) return -1;
   if (bf16) {
-    const int fwd[] = {tc::fwd_smem<32>(), tc::fwd_smem<64>(), tc::fwd_smem<128>()};
+    const int fwd[] = {tc::fwd_smem<32>(), tc::fwd_smem<64>(), tc::fwd_smem<128>(),
+                       tc::fwd_smem<160>()};
     const int dq[] = {tc::dq_smem<32>(), tc::dq_smem<64>(), tc::dq_smem<128>()};
     const int dkdv[] = {tc::dkdv_smem<32>(), tc::dkdv_smem<64>(), tc::dkdv_smem<128>()};
     return kernel == 0 ? fwd[i] : kernel == 1 ? dq[i] : dkdv[i];
   }
-  const int fwd[] = {fwd_smem<32>(), fwd_smem<64>(), fwd_smem<128>()};
+  const int fwd[] = {fwd_smem<32>(), fwd_smem<64>(), fwd_smem<128>(), fwd_smem<160>()};
   const int dq[] = {dq_smem<32>(), dq_smem<64>(), dq_smem<128>()};
   const int dkdv[] = {dkdv_smem<32>(), dkdv_smem<64>(), dkdv_smem<128>()};
   return kernel == 0 ? fwd[i] : kernel == 1 ? dq[i] : dkdv[i];

@@ -17,11 +17,13 @@ Anything else raises. Every product runs on the tensor cores in split
 TF32 (three TF32 products per fp32 one), which keeps fp32 accuracy.
 ``LAUNCHES`` counts kernel launches on the device: four per forward (prep,
 scores, state, out), seven per backward (bprep, bstate, bscores, dq, dv,
-dk, gates).
+dk, gates). ``SHAPES`` counts the forward's launches by (BH, S, dh),
+``BACKWARD_SHAPES`` the backward's.
 """
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 
@@ -29,6 +31,8 @@ from repro_torch.kernels import nvcc
 from repro_torch.kernels.ref import mlstm_chunk_ref
 
 LAUNCHES = {"forward": 0, "backward": 0}
+SHAPES: Counter = Counter()
+BACKWARD_SHAPES: Counter = Counter()
 _LIB: ctypes.CDLL | None = None
 CHUNK = 256               # the kernels' chunk length (csrc/mlstm_chunk.cu kP)
 TILE = 64                 # output tile of every product (kT)
@@ -114,6 +118,7 @@ def mlstm_forward(q, k, v, log_f, i_gate) -> tuple[torch.Tensor, dict]:
                    s["cst"], s["nst"], s["nq"], s["den"]), BH, S, dh, stream)
     _raise_on(err, "forward")
     LAUNCHES["forward"] += 4  # prep, scores, state, out
+    SHAPES[(BH, S, dh)] += 4
     return h, saved
 
 
@@ -151,6 +156,7 @@ def mlstm_backward(q, k, v, log_f, i_gate, h, saved: dict, g):
                    dal, du, dq, dk, dv, dlf, dig), BH, S, dh, stream)
     _raise_on(err, "backward")
     LAUNCHES["backward"] += 7  # bprep, bstate, bscores, dq, dv, dk, gates
+    BACKWARD_SHAPES[(BH, S, dh)] += 7
     return dq, dk, dv, dlf, dig
 
 

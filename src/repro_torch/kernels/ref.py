@@ -87,11 +87,11 @@ def fused_xent_bwd_ref(logits: torch.Tensor, labels: torch.Tensor, lse: torch.Te
     return (g[:, None] * (p - hit)).to(logits.dtype)
 
 
-def _visible(S: int, causal: bool, window: int, device) -> torch.Tensor:
-    """(S, S) bool: query i may attend to key j."""
-    qpos = torch.arange(S, device=device)[:, None]
-    kpos = torch.arange(S, device=device)[None, :]
-    mask = torch.ones((S, S), dtype=torch.bool, device=device)
+def _visible(Sq: int, Sk: int, causal: bool, window: int, device) -> torch.Tensor:
+    """(Sq, Sk) bool: query i may attend to key j."""
+    qpos = torch.arange(Sq, device=device)[:, None]
+    kpos = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
     if causal:
         mask &= qpos >= kpos
     if window:
@@ -107,8 +107,10 @@ def _grouped(t: torch.Tensor, kv: int) -> torch.Tensor:
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
                   window: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
-    """Flash attention's function, materialized: q (N, S, H, hd), k and v
-    (N, S, KV, hd) -> (o (N, S, H, hd) in q's dtype, lse (N, H, S) fp32).
+    """Flash attention's function, materialized: q (N, Sq, H, hd), k and v
+    (N, Sk, KV, hd) -> (o (N, Sq, H, hd) in q's dtype, lse (N, H, Sq) fp32).
+    Sk differs from Sq for cross-attention (every key visible there, as
+    ``repro/models/layers.py:236-240`` calls it).
 
     The Pallas kernel's arithmetic (``repro/kernels/flash_attention.py:29``)
     without the blocking: fp32 scores ``q.k * (1 / sqrt(hd))``, masked;
@@ -120,7 +122,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: 
     KV = k.shape[2]
     scale = 1.0 / math.sqrt(hd)
     s = torch.einsum("nqkgd,nskd->nkgqs", _grouped(q, KV), k.float()) * scale
-    vis = _visible(S, causal, window, q.device)
+    vis = _visible(S, k.shape[1], causal, window, q.device)
     s = torch.where(vis, s, -torch.inf)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(vis, torch.exp(s - m), 0.0)
@@ -146,7 +148,7 @@ def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool, window: int = 0):
     kf, vf = k.float(), v.float()
     D = (do.float() * o.float()).sum(-1).reshape(N, S, KV, G).permute(0, 2, 3, 1)
     s = torch.einsum("nqkgd,nskd->nkgqs", qg, kf) * scale
-    vis = _visible(S, causal, window, q.device)
+    vis = _visible(S, k.shape[1], causal, window, q.device)
     p = torch.where(vis, torch.exp(s - lse.reshape(N, KV, G, S)[..., None]), 0.0)
     dv = torch.einsum("nkgqs,nqkgd->nskd", p.to(v.dtype).float(), dog)
     dp = torch.einsum("nqkgd,nskd->nkgqs", dog, vf)

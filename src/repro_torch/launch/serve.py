@@ -5,14 +5,22 @@ The JAX CLI's flags, plus ``--device``: the run goes to the card unless
 ``--device cpu``. The prompt is stepped one token at a time, then the
 model decodes greedily; it prints the JAX CLI's lines. Decoding is torch
 ops (``models/model.py::decode_step``), as the JAX package's is plain
-``jnp``: no kernel sits on this path. On the card each step is one CUDA
-graph replay (``stepper``). With ``--split-tier`` the model is
+``jnp``: no kernel sits on the steps. On the card each step is one CUDA
+graph replay (``stepper``). An encoder-decoder (whisper-base) first
+encodes its frontend, the stubbed audio frames (on K4: bidirectional
+attention over the frames), and fills every decoder layer's cross cache
+from the result (``models/model.py::fill_cross_cache``); the CLI feeds
+zero frames, as the JAX CLI does (with zero frames ``front_proj``,
+attention, the MLP and ``rmsnorm`` all map 0 to 0, so the cross caches are
+zero and cross-attention adds nothing: ``generate`` takes a frontend for
+runs that need one). A VLM (pixtral-12b) decodes tokens only, as the JAX
+package's decode does. With ``--split-tier`` the model is
 split at that DTFL tier (``core/tiering.py::split_params``): every step
 runs the client's half (embed + its blocks) and hands z to the server's
-half (the remaining blocks + head), each with its own cache. The JAX CLI
-prints the split and decodes the whole model; both give the same tokens.
-The encoder-decoder and VLM archs (whisper-base, pixtral-12b) raise "not
-yet ported".
+half (the remaining blocks + head), each with its own cache; the encoder
+runs on the client, and each half fills its own layers' cross caches from
+its output, which crosses once. The JAX CLI prints the split and decodes
+the whole model; both give the same tokens.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m --tokens 32 \\
       --device cpu
@@ -37,8 +45,6 @@ def _arch(name: str) -> str:
     if name not in registry.ASSIGNED_ARCH_NAMES:
         raise argparse.ArgumentTypeError(
             f"invalid arch {name!r}; choose from {', '.join(registry.ASSIGNED_ARCH_NAMES)}")
-    if not registry.archs.is_ported(name):
-        raise argparse.ArgumentTypeError(f"arch {name!r} is not yet ported")
     return name
 
 
@@ -68,16 +74,24 @@ def build_model(cfg, *, batch: int, prompt_len: int, seed: int = 0, device=None)
     return params, prompt
 
 
-def stepper(cfg, params, batch: int, total: int, *, split_tier: int = 0):
+def stepper(cfg, params, batch: int, total: int, *, split_tier: int = 0,
+            frontend: "torch.Tensor | None" = None):
     """A function ``tok (1, B) -> logits (1, B, V)`` that decodes the next
     of up to ``total`` positions, with its own caches. ``split_tier`` > 0
     runs every step as the client's half and the server's half of that
-    tier's split, each with its cache. On the card the step is captured
+    tier's split, each with its cache. An encoder-decoder takes its
+    ``frontend`` (1, B, P, d_front): the encoder runs once here (on the
+    client under a split) and each half fills its layers' cross caches
+    from its output, which the captured step then only reads; other
+    families take none. On the card the step is captured
     once in a CUDA graph (after a warm-up step on copies of the caches) and
     each call replays it: the same torch ops, launched without the host's
     per-op work, as the JAX package jits its step. There the returned
     logits are a buffer that the next call overwrites."""
     device = params["embed"].device
+    if (frontend is None) != (cfg.family != "encdec"):
+        raise ValueError("an encoder-decoder's stepper takes its frontend, and no other "
+                         f"family's does (family {cfg.family!r})")
     cache = M.init_cache(cfg, batch, total, device=device)
     if split_tier:
         s = tiering.split_layer(cfg, split_tier)
@@ -86,6 +100,7 @@ def stepper(cfg, params, batch: int, total: int, *, split_tier: int = 0):
             sp["lm_head"] = params["embed"].transpose(1, 2)
         caches = [{"layers": cache["layers"][:s], "pos": cache["pos"]},
                   {"layers": cache["layers"][s:], "pos": torch.zeros_like(cache["pos"])}]
+        halves = [(cp, caches[0]), (sp, caches[1])]
 
         def step(tok, caches):
             z, client = M.client_decode(cp, cfg, tok, caches[0])
@@ -93,9 +108,16 @@ def stepper(cfg, params, batch: int, total: int, *, split_tier: int = 0):
             return logits, [client, server]
     else:
         caches = cache
+        halves = [(params, cache)]
 
         def step(tok, cache):
             return M.decode_step(params, cfg, tok, cache)
+
+    if frontend is not None:
+        with torch.no_grad():
+            enc = M.encode(halves[0][0], cfg, {"frontend": frontend})
+            for half, half_cache in halves:
+                M.fill_cross_cache(half["blocks"], cfg, enc, half_cache)
 
     if device.type != "cuda":
         state = [caches]
@@ -147,12 +169,14 @@ class _Replay:
         return self.logits
 
 
-def generate(cfg, params, prompt: torch.Tensor, n_tokens: int, *, split_tier: int = 0
-             ) -> torch.Tensor:
+def generate(cfg, params, prompt: torch.Tensor, n_tokens: int, *, split_tier: int = 0,
+             frontend: "torch.Tensor | None" = None) -> torch.Tensor:
     """Step the prompt (1, B, P) through the caches, then decode greedily;
-    returns the (1, B, P + n_tokens) tokens (``stepper`` runs each step)."""
+    returns the (1, B, P + n_tokens) tokens (``stepper`` runs each step,
+    after encoding an encoder-decoder's ``frontend``)."""
     total = prompt.shape[2] + n_tokens
-    step = stepper(cfg, params, prompt.shape[1], total, split_tier=split_tier)
+    step = stepper(cfg, params, prompt.shape[1], total, split_tier=split_tier,
+                   frontend=frontend)
     tok = prompt[:, :, 0]
     out = [tok]
     with torch.no_grad():
@@ -178,8 +202,13 @@ def main(argv=None) -> torch.Tensor:
         print(f"[serve] split-tier {args.split_tier}: client blocks={s} "
               f"server blocks={cfg.n_layers - s} "
               f"(z hand-off per token: {B * cfg.d_model * 2} bytes)")
+    frontend = None
+    if cfg.family == "encdec":    # zero frames, as the JAX CLI feeds
+        frontend = torch.zeros((1, B, cfg.n_frontend_tokens, cfg.d_frontend or cfg.d_model),
+                               device=prompt.device)
     t0 = time.time()
-    seq = generate(cfg, params, prompt, args.tokens, split_tier=args.split_tier)
+    seq = generate(cfg, params, prompt, args.tokens, split_tier=args.split_tier,
+                   frontend=frontend)
     if seq.is_cuda:
         torch.cuda.synchronize(seq.device)
     dt_all = time.time() - t0

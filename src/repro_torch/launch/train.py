@@ -9,9 +9,11 @@ unless ``--device cpu``. String knobs (``--method``, ``--scheduler``,
 ``--codec``, ``--arch``, ``--dataset``, ``--engine``, ``--exec``,
 ``--topology``) are validated against the port's registries at parse time:
 a typo fails with the registered choice set, and a name the port does not
-have yet (an unported arch, ``--exec sharded``) fails
-with "not yet ported"; ``--devices`` (the sharded plane's mesh) raises
-"not yet ported" when the run is built.
+have yet (``--exec sharded``) fails with "not yet ported"; ``--devices``
+(the sharded plane's mesh) raises "not yet ported" when the run is built.
+``--arch whisper-base`` and ``pixtral-12b`` go as far as the JAX CLI goes:
+their LM batches carry no frontend, so the first client step raises
+``KeyError: 'frontend'``, as ``repro/models/model.py:64`` and ``:72`` do.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch resnet-56 \\
       --full-size --clients 10 --rounds 3 --codec int8

@@ -10,9 +10,11 @@ hand-written CUDA kernels for a CUDA tensor, their plain version for a CPU
 tensor. It takes k and v at KV heads, in the JAX package's grouped form
 (``q.reshape(B, Sq, KV, G, hd)``, ``layers.py:136``): query head h reads
 KV head h // G. One-token decoding (``decode_attention``,
-``attn_decode_apply``) is torch ops, as the JAX package's is plain ``jnp``:
-the serving path launches no kernel. Cross-attention comes with the
-encoder-decoder family; one device needs no ``constrain``.
+``attn_decode_apply``, ``cross_attn_decode_apply``) is torch ops, as the
+JAX package's is plain ``jnp``: the decode steps launch no kernel.
+Cross-attention (``attn_apply(kv_source=)``, the encoder-decoder family)
+runs on K4 with k and v at the source's length; one device needs no
+``constrain``.
 """
 from __future__ import annotations
 
@@ -102,8 +104,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool, window: int = 0) -> torch.Tensor:
     """Softmax attention with causal and sliding-window masking.
 
-    q: (N, S, H, hd); k, v: (N, S, KV, hd) with H a multiple of KV.
-    Returns (N, S, H, hd) in q's dtype. Scores, softmax statistics and the
+    q: (N, Sq, H, hd); k, v: (N, Sk, KV, hd) with H a multiple of KV; Sk
+    differs from Sq only without a mask (cross-attention).
+    Returns (N, Sq, H, hd) in q's dtype. Scores, softmax statistics and the
     accumulator are fp32; the probabilities are cast to v's dtype before
     the product with v, as in ``repro/models/layers.py:150``."""
     return flash_attention(q, k, v, causal=causal, window=window)
@@ -140,20 +143,27 @@ def client_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def attn_apply(x: torch.Tensor, p: Params, cfg, *, causal: bool = True,
-               window: int | None = None) -> torch.Tensor:
-    """Full-sequence self-attention. x (C, B, S, D)."""
+               window: int | None = None, kv_source: torch.Tensor | None = None,
+               use_rope: bool = True) -> torch.Tensor:
+    """Full-sequence attention, x (C, B, S, D) (``repro/models/layers.py:213``).
+    ``kv_source`` (C, B, Sk, D) makes it cross-attention: k and v are
+    projected from the source at its own length, with no RoPE and no mask.
+    Self-attention applies RoPE when ``use_rope``."""
     C, B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     dt = cdtype(cfg)
     xv = x.to(dt)
+    src = xv if kv_source is None else kv_source.to(dt)
+    Sk = src.shape[2]
     q = client_mm(xv, p["wq"].to(dt)).reshape(C * B, S, cfg.n_heads, hd)
-    k = client_mm(xv, p["wk"].to(dt)).reshape(C * B, S, cfg.n_kv_heads, hd)
-    v = client_mm(xv, p["wv"].to(dt)).reshape(C * B, S, cfg.n_kv_heads, hd)
-    pos = torch.arange(S, device=x.device)
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k, pos, cfg.rope_theta)
+    k = client_mm(src, p["wk"].to(dt)).reshape(C * B, Sk, cfg.n_kv_heads, hd)
+    v = client_mm(src, p["wv"].to(dt)).reshape(C * B, Sk, cfg.n_kv_heads, hd)
+    if use_rope and kv_source is None:
+        pos = torch.arange(S, device=x.device)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
     w = cfg.window if window is None else window
-    out = attention(q, k, v, causal=causal, window=w or 0)
+    out = attention(q, k, v, causal=causal and kv_source is None, window=w or 0)
     return client_mm(out.reshape(C, B, S, -1), p["wo"].to(dt)).to(x.dtype)
 
 
@@ -181,6 +191,23 @@ def attn_decode_apply(x: torch.Tensor, p: Params, cfg, cache: Params, pos: torch
     out = decode_attention(q, cache["k"].reshape((C * B,) + cache["k"].shape[2:]),
                            cache["v"].reshape((C * B,) + cache["v"].shape[2:]), pos, ring=ring)
     return client_mm(out.reshape(C, B, 1, -1), p["wo"].to(dt)).to(x.dtype), cache
+
+
+def cross_attn_decode_apply(x: torch.Tensor, p: Params, cfg, xk: torch.Tensor,
+                            xv: torch.Tensor) -> torch.Tensor:
+    """One token's cross-attention, x (C, B, 1, D), over the keys and values
+    precomputed from the encoder's output, xk and xv (C, B, P, KV, hd)
+    (``repro/models/layers.py:285``): ``decode_attention`` with every slot
+    valid (``pos = P - 1`` on the device), no RoPE."""
+    C, B = x.shape[:2]
+    hd = cfg.resolved_head_dim
+    dt = cdtype(cfg)
+    P = xk.shape[2]
+    q = client_mm(x.to(dt), p["wq"].to(dt)).reshape(C * B, 1, cfg.n_heads, hd)
+    pos = torch.full((), P - 1, dtype=torch.int64, device=x.device)
+    out = decode_attention(q, xk.reshape((C * B,) + xk.shape[2:]).to(dt),
+                           xv.reshape((C * B,) + xv.shape[2:]).to(dt), pos, ring=False)
+    return client_mm(out.reshape(C, B, 1, -1), p["wo"].to(dt)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,21 +1,29 @@
 """Public model API of the transformer (pair: ``repro/models/model.py:1``).
 
-Dense, MoE, xLSTM and hybrid families. The parameter tree keeps the JAX package's keys, with
-the blocks stacked on a layer axis so a DTFL tier splits it by slicing
-(``core/tiering.py``)::
+Dense, MoE, xLSTM, hybrid, encoder-decoder and VLM families. The
+parameter tree keeps the JAX package's keys, with the blocks stacked on a
+layer axis so a DTFL tier splits it by slicing (``core/tiering.py``)::
 
     params = {
-      'embed':    (V, D),
-      'blocks':   {... leading axis L ...},
-      'final_ln': (D,),
-      'lm_head':  (D, V)     # absent when cfg.tie_embeddings
+      'embed':      (V, D),
+      'blocks':     {... leading axis L ...},
+      'final_ln':   (D,),
+      'lm_head':    (D, V)          # absent when cfg.tie_embeddings
+      'front_proj': (d_front, D)    # vlm / audio stub projector
+      'enc_blocks': {... axis L_enc}  # encdec
+      'enc_ln':     (D,),           # encdec
     }
 
 ``init`` returns one model (no client axis); every apply function takes a
 leading client axis C on the parameters and on the batch: tokens (C, B, S)
-int32, and the MoE load-balance loss they return is (C,), one per client
-(0.0 for the families without one). ``count_params_analytic`` counts the
-shapes of ``init`` built on the meta device.
+int32, frontend (C, B, P, d_front) float for the vlm and audio archs (the
+stubbed patch or frame embeddings), and the MoE load-balance loss they
+return is (C,), one per client (0.0 for the families without one). The
+VLM writes its projected patches over positions [0, P) of the embedded
+tokens; the encoder-decoder encodes the frames (``encode``) and its
+decoder blocks attend to the result, which ``client_forward`` hands to the
+server beside z. ``count_params_analytic`` counts the shapes of ``init``
+built on the meta device.
 
 Decoding (``init_cache``, ``decode_step``) keeps the client axis: a served
 model is C = 1. The cache is ``{"layers": [one dict a layer], "pos": ()
@@ -24,7 +32,10 @@ the new states and position. The position lives on the device and an
 xLSTM layer's cell is read from its cache, so a step reads nothing back
 from the device. ``client_decode`` and ``server_decode`` are the two
 halves of a step under a DTFL split, as ``client_forward`` and
-``server_forward`` are of the forward.
+``server_forward`` are of the forward. An encoder-decoder's cache also
+holds each decoder layer's cross-attention keys and values, which
+``fill_cross_cache`` computes once from ``encode``'s output before the
+first step; a VLM decodes tokens only, as the JAX package's decode does.
 """
 from __future__ import annotations
 
@@ -47,14 +58,47 @@ def init(gen: torch.Generator | None, cfg, *, device="cpu") -> Params:
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.padded_vocab, scale=0.02,
                                        device=device)
+    if cfg.frontend != "none":
+        params["front_proj"] = dense_init(gen, cfg.d_frontend or cfg.d_model, cfg.d_model,
+                                          device=device)
+    if cfg.family == "encdec":
+        params["enc_blocks"] = tfm.stack_init(gen, cfg, cfg.n_enc_layers, kind="enc",
+                                              device=device)
+        params["enc_ln"] = torch.ones((cfg.d_model,), device=device)
     return params
 
 
-def embed_tokens(params: Params, cfg, batch: dict) -> torch.Tensor:
-    """(C, B, S) tokens -> (C, B, S, D) in the compute dtype."""
+def _project_frontend(params: Params, batch: dict) -> torch.Tensor:
+    """The stubbed frontend's (C, B, P, d_front) embeddings through
+    ``front_proj``, in fp32."""
+    return client_mm(batch["frontend"].float(), params["front_proj"])
+
+
+def _gather(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """(C, B, S) tokens -> their (C, B, S, D) fp32 rows of each client's embed."""
     emb = params["embed"]
     rows = torch.arange(emb.shape[0], device=emb.device).reshape(-1, 1, 1)
-    return emb[rows, batch["tokens"].long()].to(cdtype(cfg))
+    return emb[rows, tokens.long()]
+
+
+def embed_tokens(params: Params, cfg, batch: dict) -> torch.Tensor:
+    """(C, B, S) tokens -> (C, B, S, D) in the compute dtype; a VLM's
+    projected patches replace positions [0, P) (``repro/models/model.py:60-67``)."""
+    x = _gather(params, batch["tokens"])
+    if cfg.family == "vlm":
+        pe = _project_frontend(params, batch)
+        if pe.shape[2] > x.shape[2]:
+            raise ValueError(f"{pe.shape[2]} patches do not fit {x.shape[2]} positions")
+        x = torch.cat([pe.to(x.dtype), x[:, :, pe.shape[2]:]], dim=2)
+    return x.to(cdtype(cfg))
+
+
+def encode(params: Params, cfg, batch: dict) -> torch.Tensor:
+    """The encoder over the stubbed audio-frame embeddings
+    (``repro/models/model.py:70-75``): (C, B, P, D) in the compute dtype."""
+    xin = _project_frontend(params, batch).to(cdtype(cfg))
+    enc, _ = tfm.stack_apply(xin, params["enc_blocks"], cfg, kind="enc")
+    return rmsnorm(enc, params["enc_ln"], cfg.norm_eps)
 
 
 def _vocab_mask(cfg, logits: torch.Tensor) -> torch.Tensor:
@@ -77,23 +121,29 @@ def lm_logits(params: Params, cfg, x: torch.Tensor) -> torch.Tensor:
 
 def forward(params: Params, cfg, batch: dict) -> tuple[torch.Tensor, "torch.Tensor | float"]:
     """Returns (logits (C, B, S, V) compute-dtype, moe_aux_loss (C,))."""
+    enc_out = encode(params, cfg, batch) if cfg.family == "encdec" else None
     x = embed_tokens(params, cfg, batch)
-    x, aux = tfm.stack_apply(x, params["blocks"], cfg)
+    x, aux = tfm.stack_apply(x, params["blocks"], cfg, enc_out=enc_out)
     return lm_logits(params, cfg, x), aux
 
 
-def client_forward(client_params: Params, cfg, batch: dict
-                   ) -> tuple[torch.Tensor, "torch.Tensor | float"]:
-    """Embed + the client's blocks. Returns (z, moe_aux (C,))."""
+def client_forward(client_params: Params, cfg, batch: dict):
+    """Embed (and encode) + the client's blocks. Returns (z, moe_aux (C,));
+    an encoder-decoder's z is (z, enc_out): the server's decoder blocks
+    attend to the encoder's output too."""
+    enc_out = encode(client_params, cfg, batch) if cfg.family == "encdec" else None
     x = embed_tokens(client_params, cfg, batch)
-    return tfm.stack_apply(x, client_params["blocks"], cfg)
+    x, aux = tfm.stack_apply(x, client_params["blocks"], cfg, enc_out=enc_out)
+    return ((x, enc_out) if enc_out is not None else x), aux
 
 
-def server_forward(server_params: Params, cfg, z: torch.Tensor
-                   ) -> tuple[torch.Tensor, "torch.Tensor | float"]:
-    """The remaining blocks + head on the received activations. Returns
-    (logits, moe_aux (C,))."""
-    x, aux = tfm.stack_apply(z, server_params["blocks"], cfg)
+def server_forward(server_params: Params, cfg, z) -> tuple[torch.Tensor, "torch.Tensor | float"]:
+    """The remaining blocks + head on the received activations (an
+    encoder-decoder's ``(z, enc_out)``). Returns (logits, moe_aux (C,))."""
+    enc_out = None
+    if cfg.family == "encdec":
+        z, enc_out = z
+    x, aux = tfm.stack_apply(z, server_params["blocks"], cfg, enc_out=enc_out)
     return lm_logits(server_params, cfg, x), aux
 
 
@@ -106,7 +156,9 @@ def aux_head_init(gen: torch.Generator | None, cfg, *, device="cpu") -> Params:
     }
 
 
-def aux_head_apply(aux_params: Params, cfg, z: torch.Tensor) -> torch.Tensor:
+def aux_head_apply(aux_params: Params, cfg, z) -> torch.Tensor:
+    if cfg.family == "encdec":
+        z, _ = z
     dt = cdtype(cfg)
     h = rmsnorm(z, aux_params["ln"], cfg.norm_eps).to(dt)
     return _vocab_mask(cfg, client_mm(h, aux_params["proj"].to(dt)))
@@ -118,7 +170,8 @@ def count_params_analytic(cfg, active_only: bool = False) -> int:
     its total; an MoE layer uses ``top_k`` of its routed experts, so the
     other experts' three matrices are taken off; an xLSTM stack holds both
     cells in every layer and uses one, so the unused cell of each layer is
-    taken off; a hybrid block uses all of its parameters."""
+    taken off; a hybrid, encoder-decoder or VLM model uses all of its
+    parameters."""
     total = _tree_size(init(None, cfg, device="meta"))
     if active_only and cfg.family == "moe":
         per_expert = 3 * cfg.d_model * cfg.d_ff
@@ -158,6 +211,23 @@ def init_cache(cfg, batch_size: int, seq_len: int, *, device="cpu") -> Params:
     return {"layers": layers, "pos": torch.zeros((), dtype=torch.int64, device=device)}
 
 
+def fill_cross_cache(blocks: Params, cfg, enc_out: torch.Tensor, cache: Params) -> Params:
+    """Write each decoder layer's cross-attention keys and values over the
+    encoder's output ``enc_out`` (C, B, P, D) into ``cache`` in place:
+    ``enc @ xattn.wk[i]`` and ``enc @ xattn.wv[i]`` per layer, no RoPE, as
+    the JAX CLI (``repro/launch/serve.py:46-58``) fills them. ``blocks`` are
+    the stacked blocks whose layers the cache holds (a split half's, under
+    ``--split-tier``). Returns the cache."""
+    C, B, P, _ = enc_out.shape
+    dt = cdtype(cfg)
+    enc = enc_out.to(dt)
+    for i, layer in enumerate(cache["layers"]):
+        for name, w in (("xk", "wk"), ("xv", "wv")):
+            proj = client_mm(enc, blocks["xattn"][w][:, i].to(dt))
+            layer[name].copy_(proj.reshape(C, B, P, cfg.n_kv_heads, cfg.resolved_head_dim))
+    return cache
+
+
 def _decode_blocks(blocks: Params, cfg, x: torch.Tensor, cache: Params
                    ) -> tuple[torch.Tensor, Params]:
     pos = cache["pos"]
@@ -167,7 +237,8 @@ def _decode_blocks(blocks: Params, cfg, x: torch.Tensor, cache: Params
 
 
 def _embed_token(params: Params, cfg, token: torch.Tensor) -> torch.Tensor:
-    return embed_tokens(params, cfg, {"tokens": token[..., None]})     # (C, B, 1, D)
+    # no frontend fusion: the JAX package's decode embeds tokens only
+    return _gather(params, token[..., None]).to(cdtype(cfg))          # (C, B, 1, D)
 
 
 def decode_step(params: Params, cfg, token: torch.Tensor, cache: Params

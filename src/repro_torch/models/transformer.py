@@ -1,23 +1,28 @@
 """Transformer blocks and the stacked layer run (pair: ``repro/models/transformer.py:1``).
 
-Four block kinds so far:
+Block kinds:
   dense  : GQA attention + SwiGLU MLP (SmolLM-360M, granite-3-2b, yi-6b,
-           deepseek-67b);
+           deepseek-67b; pixtral-12b, the VLM, whose patches are fused
+           into the embeddings);
   moe    : GQA attention + the shared and routed top-k MoE FFN
            (deepseek-moe-16b, llama4-scout; ``models/moe.py``);
   ssm    : the xLSTM block, an mLSTM or an sLSTM cell chosen per layer by
            the float leaf ``is_slstm`` (xLSTM-350M);
   hybrid : the hymba block, windowed GQA attention beside the Mamba heads
            on one norm, their normed outputs fused, then the MLP
-           (hymba-1.5b).
+           (hymba-1.5b);
+  enc    : bidirectional attention + MLP (whisper-base's encoder);
+  dec    : causal self-attention, cross-attention over the encoder's
+           output, then the MLP (whisper-base's decoder).
 Layer parameters are stacked on a layer axis, which is axis 1 behind the
 client axis (C, L, ...); a DTFL tier is a slice of that axis
 (``core/tiering.py``). ``stack_apply`` loops over it (the JAX package scans
 it, with remat; at the sizes the port trains, the activations of every
 layer fit, and the Mamba scan recomputes its chunks in the backward).
 ``stack_decode`` steps one token through the layers, each with its own
-cache (``block_cache_init``). The encoder-decoder and VLM families raise
-"not yet ported".
+cache (``block_cache_init``); a decoder layer's cache also holds the
+cross-attention's keys and values over the encoder's output, filled once
+before the first step (``models/model.py::fill_cross_cache``).
 """
 from __future__ import annotations
 
@@ -26,23 +31,25 @@ import torch
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (Params, attn_apply, attn_decode_apply,
-                                       attn_param_init, cdtype, mlp_apply, mlp_param_init,
-                                       per_client, rmsnorm)
+                                       attn_param_init, cdtype, cross_attn_decode_apply,
+                                       mlp_apply, mlp_param_init, per_client, rmsnorm)
 from repro_torch.tree import tree_map
 
 
 def block_kind(cfg) -> str:
-    """The block kind of a config's family (``dense``, ``moe``, ``ssm`` or
-    ``hybrid``)."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(f"family {cfg.family!r} is not yet ported")
-    return cfg.family
+    """The block kind of a config's family's layer stack
+    (``repro/models/transformer.py:39-47``): the VLM's is ``dense``, the
+    encoder-decoder's ``dec`` (its encoder's is ``enc``)."""
+    return {"dense": "dense", "vlm": "dense", "moe": "moe", "ssm": "ssm",
+            "hybrid": "hybrid", "encdec": "dec"}[cfg.family]
 
 
-def block_init(gen, cfg, *, lead: tuple = (), device="cpu") -> Params:
-    """One block's parameters, with ``lead`` prepended to every leaf."""
+def block_init(gen, cfg, *, kind: str | None = None, lead: tuple = (),
+               device="cpu") -> Params:
+    """One block's parameters, of ``kind`` (the config's stack's by
+    default), with ``lead`` prepended to every leaf."""
     d = cfg.d_model
-    kind = block_kind(cfg)
+    kind = kind or block_kind(cfg)
     if kind == "ssm":
         return {
             "mlstm": ssm_lib.mlstm_param_init(gen, cfg, lead=lead, device=device),
@@ -67,8 +74,11 @@ def block_init(gen, cfg, *, lead: tuple = (), device="cpu") -> Params:
     block = {
         "ln1": ones(),
         "attn": attn_param_init(gen, cfg, lead=lead, device=device),
-        "ln2": ones(),
     }
+    if kind == "dec":
+        block["ln_x"] = ones()
+        block["xattn"] = attn_param_init(gen, cfg, lead=lead, device=device)
+    block["ln2"] = ones()
     if kind == "moe":
         block["moe"] = moe_lib.moe_param_init(gen, cfg, lead=lead, device=device)
     else:
@@ -76,21 +86,35 @@ def block_init(gen, cfg, *, lead: tuple = (), device="cpu") -> Params:
     return block
 
 
-def stack_init(gen, cfg, n_layers: int, *, device="cpu") -> Params:
-    """``n_layers`` blocks stacked on a leading layer axis. An xLSTM stack
-    with ``slstm_every`` also holds the float flags ``is_slstm`` (L,): 1.0
-    for every ``slstm_every``-th layer (``repro/models/transformer.py:103-106``,
+def stack_init(gen, cfg, n_layers: int, *, kind: str | None = None,
+               device="cpu") -> Params:
+    """``n_layers`` blocks of ``kind`` (the config's stack's by default)
+    stacked on a leading layer axis. An xLSTM stack with ``slstm_every``
+    also holds the float flags ``is_slstm`` (L,): 1.0 for every
+    ``slstm_every``-th layer (``repro/models/transformer.py:103-106``,
     ``is_slstm_layer``)."""
-    stacked = block_init(gen, cfg, lead=(n_layers,), device=device)
-    if block_kind(cfg) == "ssm" and cfg.slstm_every:
+    kind = kind or block_kind(cfg)
+    stacked = block_init(gen, cfg, kind=kind, lead=(n_layers,), device=device)
+    if kind == "ssm" and cfg.slstm_every:
         stacked["is_slstm"] = torch.tensor([float(is_slstm_layer(cfg, i)) for i in range(n_layers)],
                                            device=device)
     return stacked
 
 
-def block_apply(x: torch.Tensor, bp: Params, cfg) -> torch.Tensor:
-    """A dense block; x (C, B, S, D), ``bp`` one layer's leaves (C, ...)."""
+def block_apply(x: torch.Tensor, bp: Params, cfg, *, causal: bool = True) -> torch.Tensor:
+    """A dense block, or an encoder block with ``causal=False``; x
+    (C, B, S, D), ``bp`` one layer's leaves (C, ...)."""
+    x = x + attn_apply(rmsnorm(x, bp["ln1"], cfg.norm_eps), bp["attn"], cfg, causal=causal)
+    return x + mlp_apply(rmsnorm(x, bp["ln2"], cfg.norm_eps), bp["mlp"], cfg)
+
+
+def dec_block_apply(x: torch.Tensor, bp: Params, cfg, enc_out: torch.Tensor) -> torch.Tensor:
+    """A decoder block (``repro/models/transformer.py:155-162``): causal
+    self-attention, then cross-attention over ``enc_out`` (C, B, P, D) on
+    ``ln_x``, no RoPE, then the MLP."""
     x = x + attn_apply(rmsnorm(x, bp["ln1"], cfg.norm_eps), bp["attn"], cfg, causal=True)
+    x = x + attn_apply(rmsnorm(x, bp["ln_x"], cfg.norm_eps), bp["xattn"], cfg, causal=False,
+                       kv_source=enc_out, use_rope=False)
     return x + mlp_apply(rmsnorm(x, bp["ln2"], cfg.norm_eps), bp["mlp"], cfg)
 
 
@@ -129,19 +153,23 @@ def ssm_block_apply(x: torch.Tensor, bp: Params, cfg, slstm: bool) -> torch.Tens
     return ssm_lib.mlstm_apply(x, bp["mlstm"], cfg)
 
 
-def stack_apply(x: torch.Tensor, stacked: Params, cfg
+def stack_apply(x: torch.Tensor, stacked: Params, cfg, *, kind: str | None = None,
+                enc_out: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, "torch.Tensor | float"]:
-    """Run x through the stacked blocks (leaves (C, L, ...)). Returns
-    (x, moe_aux_loss): for MoE blocks the sum over layers of each client's
-    load-balance loss, (C,); 0.0 for the dense, xLSTM and hybrid blocks,
-    which have none."""
-    kind = block_kind(cfg)
-    if kind in ("dense", "moe", "hybrid"):
+    """Run x through the stacked blocks (leaves (C, L, ...)) of ``kind``
+    (the config's stack's by default; ``dec`` blocks attend to
+    ``enc_out``). Returns (x, moe_aux_loss): for MoE blocks the sum over
+    layers of each client's load-balance loss, (C,); 0.0 for the other
+    blocks, which have none."""
+    kind = kind or block_kind(cfg)
+    if kind in ("dense", "moe", "hybrid", "enc", "dec"):
         aux = 0.0
         for layer in range(stacked["ln1"].shape[1]):
             bp = tree_map(lambda t: t[:, layer], stacked)
-            if kind == "dense":
-                x = block_apply(x, bp, cfg)
+            if kind in ("dense", "enc"):
+                x = block_apply(x, bp, cfg, causal=kind == "dense")
+            elif kind == "dec":
+                x = dec_block_apply(x, bp, cfg, enc_out)
             elif kind == "hybrid":
                 x = hybrid_block_apply(x, bp, cfg)
             else:
@@ -183,9 +211,12 @@ def block_cache_init(cfg, batch: int, cache_len: int, *, slstm: bool = False,
     """One layer's decode cache (``repro/models/transformer.py:193-221``) for
     one model (a client axis of 1): attention k and v (1, B, W, KV, hd) in
     the compute dtype, and the recurrent state of the Mamba heads or of the
-    xLSTM layer's cell, fp32. An xLSTM layer keeps the state of the cell it
-    runs only, the sLSTM's if ``slstm``, so the cache says which cell a
-    step runs (the JAX package keeps both and picks by ``is_slstm``)."""
+    xLSTM layer's cell, fp32; a decoder layer also holds the
+    cross-attention's xk and xv (1, B, n_frontend_tokens, KV, hd), zero
+    until ``models/model.py::fill_cross_cache`` fills them. An xLSTM layer
+    keeps the state of the cell it runs only, the sLSTM's if ``slstm``, so
+    the cache says which cell a step runs (the JAX package keeps both and
+    picks by ``is_slstm``)."""
     kind = block_kind(cfg)
     lead = (1,)
     if kind == "ssm":
@@ -197,6 +228,10 @@ def block_cache_init(cfg, batch: int, cache_len: int, *, slstm: bool = False,
              "v": torch.zeros(shape, dtype=cdtype(cfg), device=device)}
     if kind == "hybrid":
         cache["mamba"] = ssm_lib.mamba_state_init(cfg, batch, lead=lead, device=device)
+    if kind == "dec":
+        xshape = lead + (batch, cfg.n_frontend_tokens, cfg.n_kv_heads, cfg.resolved_head_dim)
+        cache["xk"] = torch.zeros(xshape, dtype=cdtype(cfg), device=device)
+        cache["xv"] = torch.zeros(xshape, dtype=cdtype(cfg), device=device)
     return cache
 
 
@@ -204,7 +239,8 @@ def block_decode(x: torch.Tensor, bp: Params, cache: Params, cfg, pos: torch.Ten
                  ring: bool) -> tuple[torch.Tensor, Params, "torch.Tensor | float"]:
     """One token through one block, x (C, B, 1, D) (``repro/models/transformer.py:224-287``).
     Returns (x, the layer's cache, the MoE load-balance loss (C,) or 0.0).
-    An xLSTM layer runs the cell whose state its cache holds."""
+    An xLSTM layer runs the cell whose state its cache holds; a decoder
+    layer reads its cross caches and returns them as they were."""
     kind = block_kind(cfg)
     if kind == "ssm":
         cell, step = (("slstm", ssm_lib.slstm_decode) if "slstm" in cache
@@ -220,6 +256,9 @@ def block_decode(x: torch.Tensor, bp: Params, cache: Params, cfg, pos: torch.Ten
         x = x + _fuse(x, a, m, bp, cfg)
     else:
         x = x + a
+    if kind == "dec":
+        x = x + cross_attn_decode_apply(rmsnorm(x, bp["ln_x"], cfg.norm_eps), bp["xattn"], cfg,
+                                        cache["xk"], cache["xv"])
     h = rmsnorm(x, bp["ln2"], cfg.norm_eps)
     if kind == "moe":
         y, aux = moe_lib.moe_apply(h, bp["moe"], cfg)

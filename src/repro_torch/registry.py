@@ -18,8 +18,7 @@ both packages. Lazy targets point at ``repro_torch`` modules.
 A component the port does not have yet stays registered under its name
 with ``ported=False``: a spec naming it validates and hashes as in the JAX
 package, and building or loading it raises ``NotImplementedError("... not
-yet ported")``. That covers whisper-base and pixtral-12b (the
-encoder-decoder and VLM families) and exec mode ``sharded``.
+yet ported")``. That covers exec mode ``sharded``.
 
 The module is stdlib-only at import time; factories import their
 implementation lazily when built.
@@ -351,19 +350,14 @@ def _transformer_arch(name: str):
 for _n in ("resnet-56", "resnet-110", "resnet-bench", "resnet-micro"):
     register_arch(_n, kind="resnet", build=_resnet_arch(_n))
 
-# the assigned transformer pool (repro/registry.py's ASSIGNED_ARCH_NAMES);
-# the port runs the dense, MoE, xLSTM and hybrid families so far
+# the assigned transformer pool (repro/registry.py's ASSIGNED_ARCH_NAMES)
 ASSIGNED_ARCH_NAMES = (
     "whisper-base", "granite-3-2b", "pixtral-12b", "yi-6b", "xlstm-350m",
     "hymba-1.5b", "deepseek-moe-16b", "deepseek-67b", "llama4-scout-17b-a16e",
     "smollm-360m",
 )
-PORTED_TRANSFORMERS = ("granite-3-2b", "yi-6b", "xlstm-350m", "hymba-1.5b",
-                       "deepseek-moe-16b", "deepseek-67b", "llama4-scout-17b-a16e",
-                       "smollm-360m")
 for _n in ASSIGNED_ARCH_NAMES:
-    register_arch(_n, kind="transformer", build=_transformer_arch(_n),
-                  ported=_n in PORTED_TRANSFORMERS)
+    register_arch(_n, kind="transformer", build=_transformer_arch(_n))
 
 
 def _pool(attr: str | None):

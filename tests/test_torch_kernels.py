@@ -320,11 +320,27 @@ def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take():
         fa.flash_attention(q.to("meta"), kv.to("meta"), kv.to("meta"))
     with pytest.raises(ValueError):
         fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), kv, kv)
-    with pytest.raises(ValueError):   # head_dim above 128
-        fa.flash_attention(torch.zeros(1, 4, 2, 160), torch.zeros(1, 4, 2, 160),
-                           torch.zeros(1, 4, 2, 160))
+    with pytest.raises(ValueError):   # head_dim above 160
+        fa.flash_attention(torch.zeros(1, 4, 2, 168), torch.zeros(1, 4, 2, 168),
+                           torch.zeros(1, 4, 2, 168))
     with pytest.raises(ValueError):
         fa.flash_attention(q, kv, kv, window=-1)
+    # Sq != Sk (cross-attention) without a mask only, and with no backward;
+    # nor a backward at head_dim 160
+    kx = torch.zeros(2, 5, 2, 16)
+    for mask in (dict(causal=True), dict(causal=False, window=3)):
+        with pytest.raises(ValueError, match="Sq 8 != Sk 5"):
+            fa.flash_attention(q, kx, kx, **mask)
+    o, lse = fa.attn_forward(q, kx, kx, causal=False)
+    assert o.shape == q.shape and lse.shape == (2, 4, 8)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        fa.attn_backward(q, kx, kx, o, lse, o, causal=False)
+    q160, kv160 = torch.zeros(1, 4, 2, 160), torch.zeros(1, 4, 2, 160)
+    o, lse = fa.attn_forward(q160, kv160, kv160, causal=True)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        fa.attn_backward(q160, kv160, kv160, o, lse, o, causal=True)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        fa.flash_attention(q.requires_grad_(True), kx, kx, causal=False).sum().backward()
 
 
 def test_fused_xent_wrapper_rejects_what_the_kernel_does_not_take():
@@ -494,6 +510,34 @@ def test_flash_attention_kernels_match_plain_on_card(cuda_device, N, S, H, KV, h
     auto = torch.autograd.grad((fa.flash_attention(qa, ka, va, causal=causal, window=window)
                                 * do).sum(), (qa, ka, va))
     assert all(torch.equal(a, b) for a, b in zip(auto, grads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("N,Sq,Sk,H,KV,hd,causal", [
+    (4, 448, 1500, 8, 8, 64, False),    # whisper-base's cross-attention
+    (3, 70, 130, 4, 2, 64, False),      # ragged on both sides, G = 2
+    (2, 130, 40, 4, 4, 32, False),      # fewer keys than queries
+    (2, 200, 200, 8, 2, 160, True),     # pixtral-12b's head dim
+    (2, 100, 37, 4, 1, 160, False),     # hd 160 across lengths
+    (2, 90, 90, 4, 2, 150, True),       # hd 150: staged element by element
+])
+def test_flash_attention_forward_cross_and_hd160_match_plain_on_card(
+        cuda_device, N, Sq, Sk, H, KV, hd, causal, dtype):
+    """The forward at Sq != Sk and at head dims above 128, against the plain
+    version at the forward's tolerances above (it has no backward there)."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q = torch.randn(N, Sq, H, hd, generator=g, device=cuda_device).to(dtype)
+    k = torch.randn(N, Sk, KV, hd, generator=g, device=cuda_device).to(dtype)
+    v = torch.randn(N, Sk, KV, hd, generator=g, device=cuda_device).to(dtype)
+    before = fa.SHAPES[(N, Sq, Sk, H, KV, hd, causal, 0, dtype)]
+    o, lse = fa.attn_forward(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.SHAPES[(N, Sq, Sk, H, KV, hd, causal, 0, dtype)] == before + 1
+    o_want, lse_want = attention_ref(q, k, v, causal=causal)
+    tol = (2e-5, 2e-5) if dtype == torch.float32 else (2e-2, 1e-2)
+    assert _close(o, o_want, *tol), float((o.float() - o_want.float()).abs().max())
+    assert torch.allclose(lse, lse_want, atol=1e-5, rtol=1e-5)
 
 
 def _xent_labels(kind, logits, g):
