@@ -181,6 +181,17 @@ Phases (any failure exits non-zero and prints no result line):
  23. the reduced ResNet-56 on the card and on the CPU, as phase 6, for
      fedavg with int8, tifl, fedgkt and fedat (async, int8); each run's
      trained clients must be equal too.
+ 23a. the sharded plane (``--exec sharded``): phase 4's flags and then
+     FedAvg's with int8 (phase 22's), each on the cohort plane and on one
+     rank of a single-rank NCCL group, K1 and K3 counts zeroed before each:
+     every round's clock, tiers and uplink bytes equal (the cohort run's
+     clock phase 4's), parameters and aux heads bit-equal, K1 and K3
+     launches equal; each plane's wall per round. Then two ranks, spawned
+     processes on the one card over gloo (NCCL refuses two ranks on one
+     device), the reduced ResNet-56 with 5 clients and top-k, so cohorts
+     pad: only rank 0 prints; rank 0's logs and envelope (parameters, aux
+     heads, residuals) against the cohort plane on the card, as phase 19
+     holds the chunked plane. Nothing checks more than one card.
 The LLM configs (after phase 14; ``LLM_RUNS``, ``LLM_ARCHS``). The
 configs keep their published widths; the depth and the client count are
 cut until one card holds the run, by a reckoning from the shapes on the
@@ -970,15 +981,18 @@ def _check_trees_finite(trainer, shapes=None) -> dict:
     return got
 
 
+MAIN_ARGV = ["--arch", "resnet-56", "--full-size", "--clients", "10", "--samples", "2000",
+             "--batch-size", "32", "--rounds", "3", "--codec", "int8",
+             "--scheduler", "dynamic", "--lr", "1e-3", "--device", "cuda"]
+
+
 def phase_main_path() -> tuple[int, float]:
     import torch
 
     from repro_torch.kernels import fused_xent, quantize
     from repro_torch.launch import train
 
-    argv = ["--arch", "resnet-56", "--full-size", "--clients", "10", "--samples", "2000",
-            "--batch-size", "32", "--rounds", "3", "--codec", "int8",
-            "--scheduler", "dynamic", "--lr", "1e-3", "--device", "cuda"]
+    argv = MAIN_ARGV
     rounds = []
     shapes = {}
 
@@ -1798,11 +1812,7 @@ def phase_chunked_vs_cohort(argv: list[str], label: str, tight: float | None = N
     tiers. The parameters, aux heads and residuals are held to
     ``tests/test_torch_planes.py``'s bounds, or, with ``tight``, every one
     of them to a max of ``tight`` U. Prints whether they are bit-equal."""
-    import numpy as np
-
-    from repro_torch.bridge import to_numpy_tree
     from repro_torch.launch import train
-    from repro_torch.tree import tree_leaves
 
     runs = {}
     for plane in (["--exec", "cohort"], ["--exec", "chunked", "--chunk-size", "2"]):
@@ -1810,12 +1820,25 @@ def phase_chunked_vs_cohort(argv: list[str], label: str, tight: float | None = N
         logs = train.main(argv + plane + ["--device", "cuda"],
                           on_round=lambda tr, log: got.update(trainer=tr))
         runs[plane[1]] = (logs, got["trainer"])
-    (alogs, atr), (blogs, btr) = runs["cohort"], runs["chunked"]
+    _hold_to_cohort("chunked", "chunks of 2", label, *runs["cohort"], *runs["chunked"],
+                    tight)
+
+
+def _hold_to_cohort(tag: str, what: str, label: str, alogs, atr, blogs, btr,
+                    tight: float | None = None) -> None:
+    """Another plane's run (``blogs``; ``btr.params``, ``.aux`` and ``._ef``
+    in the cohort trainer ``atr``'s layout) against the cohort plane's on
+    the card, as ``phase_chunked_vs_cohort`` holds the chunked plane."""
+    import numpy as np
+
+    from repro_torch.bridge import to_numpy_tree
+    from repro_torch.tree import tree_leaves
+
     for a, b in zip(alogs, blogs):
         if (a.clock, a.assignment, a.uplink_bytes) != (b.clock, b.assignment, b.uplink_bytes):
-            fail(f"chunked vs cohort round {a.round}: clock/assignment/uplink differ")
+            fail(f"{tag} vs cohort round {a.round}: clock/assignment/uplink differ")
     if {c: st["tier"] for c, st in atr._ef.items()} != {c: st["tier"] for c, st in btr._ef.items()}:
-        fail(f"chunked vs cohort, {label}: residuals held by other clients or tiers")
+        fail(f"{tag} vs cohort, {label}: residuals held by other clients or tiers")
     pairs = lambda ta, tb: list(zip(tree_leaves(to_numpy_tree(ta)), tree_leaves(to_numpy_tree(tb))))
     unit = 1e-3 * 3 * max(atr.clients[k].n_batches
                           for k in set().union(*(log.assignment for log in alogs)))
@@ -1828,7 +1851,7 @@ def phase_chunked_vs_cohort(argv: list[str], label: str, tight: float | None = N
     n_ef = sum(x.size for x, _ in ef)
     worst = max(_u_stats(ps, unit)[0] for _, ps, _ in groups)
     equal = all(np.array_equal(x, y) for _, ps, _ in groups for x, y in ps)
-    print(f"[chunked] {label}: chunks of 2 against the cohort plane on the card, logs "
+    print(f"[{tag}] {label}: {what} against the cohort plane on the card, logs "
           f"equal; parameters {_u_stats(groups[0][1], unit)} U (max, 99th percentile, "
           f"median), worst max over parameters, aux heads and residuals {worst:.3g} U, "
           f"residual entries flipped {flips} of {n_ef}, "
@@ -1837,10 +1860,158 @@ def phase_chunked_vs_cohort(argv: list[str], label: str, tight: float | None = N
         stats = _u_stats(ps, unit)
         if (stats[0] > tight if tight is not None
                 else any(x > b for x, b in zip(stats, bounds))):
-            fail(f"chunked vs cohort, {label}: {name} apart by {stats} U (max, 99th "
+            fail(f"{tag} vs cohort, {label}: {name} apart by {stats} U (max, 99th "
                  f"percentile, median), bound " + (f"max {tight}" if tight else f"{bounds}"))
     if flips > EF_FLIPS * n_ef:
-        fail(f"chunked vs cohort, {label}: {flips} of {n_ef} residual entries flipped")
+        fail(f"{tag} vs cohort, {label}: {flips} of {n_ef} residual entries flipped")
+
+
+def phase_sharded_one_rank(argv: list[str], label: str, main_clock: float | None = None
+                           ) -> None:
+    """``argv`` on the cohort plane, then on one rank of the sharded plane
+    (``--exec sharded --devices 1``: a single-rank NCCL group), K1 and K3
+    counts zeroed before each: every round's clock, tiers and uplink bytes
+    equal, the parameters and aux heads bit-equal, the launches equal;
+    with ``main_clock``, the cohort run's clock the main path's. Prints
+    each plane's wall per round."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import fused_xent, quantize
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+
+    runs = {}
+    for plane in (["--exec", "cohort"], ["--exec", "sharded", "--devices", "1"]):
+        got = {}
+        quantize.LAUNCHES = 0
+        fused_xent.LAUNCHES.update(forward=0, backward=0)
+        logs = train.main(argv + plane, on_round=lambda tr, log: got.update(trainer=tr))
+        runs[plane[1]] = (logs, got["trainer"], quantize.LAUNCHES, dict(fused_xent.LAUNCHES))
+    (alogs, atr, ak1, ak3), (blogs, btr, bk1, bk3) = runs["cohort"], runs["sharded"]
+    group = (dist.get_backend(), dist.get_world_size(), btr.exec_plan.describe())
+    dist.destroy_process_group()
+    if group != ("nccl", 1, "sharded[clients=1]"):
+        fail(f"sharded {label}: ran on a {group} group")
+    for a, b in zip(alogs, blogs):
+        if (a.clock, a.assignment, a.uplink_bytes) != (b.clock, b.assignment, b.uplink_bytes):
+            fail(f"sharded {label} round {a.round}: clock/assignment/uplink differ from the "
+                 "cohort plane's")
+        print(f"[sharded] {label} round {a.round}: wall {a.wall_s:.3f} s cohort, "
+              f"{b.wall_s:.3f} s sharded (1 rank, NCCL), sim clock {b.clock:.4f} s, "
+              f"uplink_bytes {b.uplink_bytes:.0f}, tiers {sorted(set(b.assignment.values()))}")
+    if len(alogs) != 3 or len(blogs) != 3:
+        fail(f"sharded {label}: expected 3 rounds, got {len(alogs)} and {len(blogs)}")
+    if main_clock is not None and alogs[-1].clock != main_clock:
+        fail(f"sharded {label}: the cohort run's clock {alogs[-1].clock} is not the main "
+             f"path's {main_clock}")
+    trees = [("parameters", atr.params, btr.params)]
+    trees += [(f"aux {m}", atr.aux[m], btr.aux[m]) for m in sorted(getattr(atr, "aux", {}))]
+    for name, x, y in trees:
+        if not all(torch.equal(p, q) for p, q in zip(tree_leaves(x), tree_leaves(y))):
+            fail(f"sharded {label}: {name} not bit-equal to the cohort plane's")
+    if (ak1, ak3) != (bk1, bk3) or ak1 <= 0 or min(ak3.values()) <= 0:
+        fail(f"sharded {label}: launches K1 {bk1}, K3 {bk3} against the cohort plane's "
+             f"K1 {ak1}, K3 {ak3}")
+    print(f"[sharded] {label}: 1 rank over NCCL against the cohort plane on the card: logs "
+          f"equal, parameters and aux heads bit-equal, int8_roundtrip launches {bk1}, "
+          f"fused_xent launches forward {bk3['forward']} backward {bk3['backward']} "
+          "(equal)")
+
+
+SHARDED_TWO_ARGV = ["--arch", "resnet-56", "--clients", "5", "--samples", "200",
+                    "--batch-size", "16", "--rounds", "3", "--codec", "topk0.05",
+                    "--device", "cuda"]
+
+
+def _sharded_rank(rank: int, world: int, directory: str, argv: list[str]) -> None:
+    """One rank of ``phase_sharded_two_ranks`` (a spawned process): a gloo
+    group on a ``FileStore``, the CLI, its printed lines to a file."""
+    import contextlib
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(directory, "store"), world),
+                            rank=rank, world_size=world)
+    try:
+        from repro_torch.launch import train
+
+        with open(os.path.join(directory, f"rank{rank}.log"), "w") as f, \
+                contextlib.redirect_stdout(f):
+            train.main(argv)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded_two_ranks() -> None:
+    """Two ranks on one card over gloo (NCCL refuses two ranks on one
+    device), the reduced ResNet-56 with top-k and 5 clients, so the tier
+    cohorts pad to an even width; rank 0's logs and envelope against the
+    cohort plane on the card, as the chunked plane is held."""
+    import json
+    import os
+    import shutil
+    import tempfile
+    from types import SimpleNamespace
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.fed import cohort as cohort_engine
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_map
+
+    directory = tempfile.mkdtemp(prefix=".smoke_sharded_", dir=ROOT)
+    try:
+        argv = SHARDED_TWO_ARGV + ["--exec", "sharded", "--devices", "2",
+                                   "--out", os.path.join(directory, "logs.json"),
+                                   "--out-ckpt", os.path.join(directory, "state.npz")]
+        t0 = time.perf_counter()
+        mp.spawn(_sharded_rank, args=(2, directory, argv), nprocs=2, join=True)
+        spawn_s = time.perf_counter() - t0
+        state = ckpt.load(os.path.join(directory, "state.npz"))["trainer"]
+        logs = json.load(open(os.path.join(directory, "logs.json")))
+        printed = [open(os.path.join(directory, f"rank{r}.log")).read() for r in (0, 1)]
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    if printed[1] or printed[0].count("[dtfl] r=") != 3:
+        fail(f"sharded, 2 ranks: rank 0 printed {printed[0].count('[dtfl] r=')} round lines, "
+             f"rank 1 {len(printed[1])} characters")
+    got = {}
+    alogs = train.main(SHARDED_TWO_ARGV, on_round=lambda tr, log: got.update(trainer=tr))
+    atr = got["trainer"]
+    like = lambda live, saved: tree_map(lambda _, a: torch.from_numpy(a), live, saved)
+    btr = SimpleNamespace(
+        params=like(atr.params, state["params"]),
+        aux={m: like(a, state["aux"][str(m)]) for m, a in atr.aux.items()},
+        _ef={int(c): {"tier": int(st["tier"]), "c": like(atr._ef[int(c)]["c"], st["c"]),
+                      "a": like(atr._ef[int(c)]["a"], st["a"])}
+             for c, st in state["ef"].items() if int(c) in atr._ef})
+    if sorted(int(c) for c in state["ef"]) != sorted(atr._ef):
+        fail(f"sharded, 2 ranks: residuals held by {sorted(state['ef'])}, the cohort plane's "
+             f"by {sorted(atr._ef)}")
+    blogs = [SimpleNamespace(**{**log, "assignment": {int(k): v for k, v in
+                                                      log["assignment"].items()}})
+             for log in logs]
+    if len(blogs) != 3:
+        fail(f"sharded, 2 ranks: expected 3 rounds, got {len(blogs)}")
+    pads = [co.n_pad for r, log in enumerate(blogs) for co in cohort_engine.build_cohorts(
+        atr.clients, sorted(log.assignment), log.assignment, r, 1, pad_multiple=2)]
+    if not any(pads):
+        fail("sharded, 2 ranks: no cohort padded")
+    for a, b in zip(alogs, blogs):
+        print(f"[sharded] 2 ranks round {b.round}: wall {a.wall_s:.3f} s cohort, {b.wall_s:.3f} s "
+              f"sharded (2 ranks on one card, gloo; the slower rank's), sim clock "
+              f"{b.clock:.4f} s, tiers {sorted(set(b.assignment.values()))}")
+    print(f"[sharded] 2 ranks: both processes in {spawn_s:.1f} s (start, kernel load, 3 "
+          f"rounds); {sum(pads)} pad columns in {len(pads)} cohorts")
+    _hold_to_cohort("sharded", "2 ranks over gloo", "reduced resnet-56, top-k, 5 clients",
+                    alogs, atr, blogs, btr)
 
 
 def phase_k1_device_time(entry: dict) -> None:
@@ -3619,6 +3790,12 @@ def main() -> None:
                           ("fedat", ["--engine", "async", "--codec", "int8"])):
         _phase(f"{method} reference", 1, phase_small_reference,
                RESNET_SMALL + ["--method", method] + extra, f"{method} {' '.join(extra)}".strip())
+    # the sharded plane: the main path and FedAvg on one rank (NCCL), bit for
+    # bit the cohort plane; then two ranks on the card over gloo
+    _phase("sharded run", 7, phase_sharded_one_rank, MAIN_ARGV, "main path", dtfl_clock)
+    _phase("sharded FedAvg", 8, phase_sharded_one_rank,
+           BASELINE_ARGV + ["--method", "fedavg", "--codec", "int8"], "fedavg int8")
+    _phase("sharded, 2 ranks", 2, phase_sharded_two_ranks)
     entry["launches"] = k1_launches
     _phase("K1 device time", 1, phase_k1_device_time, entry)
     k2_fwd, k2_bwd = _phase("K2 times", 1, phase_k2_times, *k2_err)

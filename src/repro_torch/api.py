@@ -14,12 +14,11 @@ legal choice set in the message.
 port's adapter, clients, env and trainer as ``repro/api.py:542-624`` does
 (the same data, profile and participant streams), and exposes ``run()`` /
 ``save()`` / ``resume()``. ``device`` is not a spec field and never enters
-the hash; the run goes to the card unless ``device="cpu"``. A spec naming
-a component the port does not have yet (the sharded plane) validates and
-hashes, and building it raises
-``NotImplementedError("... not yet ported")``. The spec stamps every
-checkpoint envelope (hash + canonical JSON), so ``resume()`` can verify it
-continues the same experiment.
+the hash; the run goes to the card unless ``device="cpu"``. Under
+``exec.mode="sharded"`` the build first joins or makes the process group
+(``launch/mesh.py::init_client_group``) and runs on this rank's device.
+The spec stamps every checkpoint envelope (hash + canonical JSON), so
+``resume()`` can verify it continues the same experiment.
 """
 from __future__ import annotations
 
@@ -548,18 +547,21 @@ class Federation:
         self.logs = None
         self._resume = None
         # a component the port does not have yet raises before any data is
-        # built: the registry refuses an unported trainer or arch, ExecPlan
-        # the sharded plane
+        # built
         cls = registry.trainers.load(spec.trainer.method)
-        if spec.exec.devices is not None:
-            raise NotImplementedError("exec.devices (the sharded plane's device "
-                                      "mesh) is not yet ported")
+        if spec.exec.mode == "sharded":
+            # the process group before anything is built
+            # (repro/api.py:547-549); the rank's device replaces ``device``
+            from repro_torch.launch.mesh import init_client_group
+
+            device = init_client_group(spec.exec.devices, device)
 
         from repro_torch import optim
         from repro_torch.fed.client import HeteroEnv
         from repro_torch.fed.execplan import ExecPlan
 
-        plan = ExecPlan.from_flags(spec.exec.mode, chunk_size=spec.exec.chunk_size)
+        plan = ExecPlan.from_flags(spec.exec.mode, devices=spec.exec.devices,
+                                   chunk_size=spec.exec.chunk_size)
         cfg_full = registry.archs.build(spec.model.arch)
         cfg = cfg_full if spec.model.full_size else cfg_full.reduced()
         self.cfg = cfg
@@ -640,7 +642,7 @@ class Federation:
         if resume is not None:
             run_kw["resume"] = resume
             self._resume = None
-            if verbose:
+            if verbose and self.trainer.exec_plan.lead:
                 print(f"[api] resuming at round {int(resume['round'])} "
                       f"(spec {self.spec.spec_hash()})")
         self.logs = self.trainer.run(

@@ -8,15 +8,18 @@ its time profile. The hooks ``select_clients``, ``client_time``,
 ``async_groups`` default to FedAvg; the rounds, events and async engines
 drive them (``fed/engine.py``).
 
-``_train_round_full`` is one path for the loop, cohort and chunked planes,
-as ``DTFLTrainer._train_chunked`` is: every batch-shape cohort's client
-axis is cut into chunks of ``ExecPlan.width`` clients, and each chunk runs
-the download wire, the optimizer init, ``cohort.run_cohort`` of the
-full-model step and the upload wire (with client-held error feedback for
-a stateful codec); the N_k/N average is ``weighted_average_cohorts``. At
-width 1 each int8 leaf is one row, the JAX package's per-tensor int8 of
-its loop plane (``uplink_rt_one``). The sharded plane is not yet ported.
-On the card the int8 wires run on K1 and every ``full_loss`` on K3.
+``_train_round_full`` is one path for every plane, as
+``DTFLTrainer._train_chunked`` is: every batch-shape cohort's client axis
+is cut into the plan's slices (``ExecPlan.slices``: chunks of
+``ExecPlan.width`` clients, or this rank's columns on the sharded plane),
+and each slice runs the download wire, the optimizer init,
+``cohort.run_cohort`` of the full-model step and the upload wire (with
+client-held error feedback for a stateful codec); the N_k/N average is
+each cohort's ``weighted_sum``, all-reduced on the sharded plane, and one
+``combine_weighted_sums``. At width 1 each int8 leaf is one row, the JAX
+package's per-tensor int8 of its loop plane (``uplink_rt_one``). FedGKT
+trains outside this path on every plane, as the JAX package's does. On
+the card the int8 wires run on K1 and every ``full_loss`` on K3.
 """
 from __future__ import annotations
 
@@ -193,30 +196,40 @@ class BaseTrainer:
 
     def _train_round_full(self, r: int, cids: list[int]):
         """Full-model local training of ``cids`` and the N_k/N weighted
-        average of their uploads: every plane, at ``exec_plan.width``
-        clients a program (the whole cohort, the chunk size, or 1)."""
-        prog = self._cohort_program()
+        average of their uploads: every plane, one program a slice of
+        ``exec_plan.slices`` (the whole cohort, a chunk, 1 client, or this
+        rank's columns), with ``DTFLTrainer._train_chunked``'s aggregation
+        and residual handling (``repro/fed/base.py:311-347``,
+        ``:408-444``)."""
+        plan, prog = self.exec_plan, self._cohort_program()
         cohorts = cohort_engine.build_cohorts(
             self.clients, cids, {k: 0 for k in cids}, r, self.local_epochs,
-            pad_multiple=self.exec_plan.pad_multiple)
-        trees, ws = [], []
+            pad_multiple=plan.pad_multiple)
+        sums, totals = [], []
         for co in cohorts:
-            width = self.exec_plan.width(co.mask.shape[1])
+            n_cols = co.mask.shape[1]
+            slices = plan.slices(n_cols)
             chunks = []
-            for sl in cohort_engine.chunk_slices(co.mask.shape[1], width):
+            for sl in slices:
                 b, m = cohort_engine.slice_clients(co.batches, co.mask, sl)
                 b = self._batches(b)
                 if self.codec.stateful:
-                    cids_c = co.cids[sl.start:min(sl.stop, co.size)]
-                    up, ef2 = prog(self.params, b, m, self._gather_ef_cids(cids_c, width))
+                    cids_c = co.cids[sl.start:sl.stop]
+                    up, ef2 = prog(self.params, b, m,
+                                   self._gather_ef_cids(cids_c, sl.stop - sl.start))
+                    if plan.n_shards > 1:
+                        cids_c, ef2 = co.cids, plan.gather_clients(ef2, n_cols)
                     self._scatter_ef_cids(cids_c, ef2)
                 else:
                     up, _ = prog(self.params, b, m)
                 chunks.append(up)
-            n = co.size  # reassemble the cohort stack, drop pad columns
-            trees.append(tree_map(lambda *xs: torch.cat(xs)[:n], *chunks))
-            ws.append([len(self.clients[k].dataset) for k in co.cids])
-        return aggregation.weighted_average_cohorts(trees, ws)
+            real = co.cids[slices[0].start:slices[-1].stop]  # pad columns dropped
+            w = [len(self.clients[k].dataset) for k in real]
+            sums.append(plan.all_reduce_tree(
+                tree_map(lambda *xs: torch.cat(xs)[:len(real)], *chunks), scaled_by=w))
+            totals.append(plan.all_reduce_scalar(
+                torch.as_tensor(w, dtype=torch.float32, device=self.device).sum()))
+        return aggregation.combine_weighted_sums(sums, totals, like=self.params)
 
     # ------------------------------------------------------------------
     # error-feedback state (repro/fed/base.py:137-170): one full-model-shaped
@@ -292,9 +305,10 @@ class BaseTrainer:
             resume: dict | None = None, on_round=None) -> list[RoundLog]:
         """``engine="rounds"``, ``"events"`` (optional churn) or ``"async"``
         (trainers with ``supports_async`` only). ``on_round(trainer, log)``
-        is called after each round."""
+        is called after each round. On the sharded plane only rank 0
+        prints."""
         common = dict(target_acc=target_acc, participation=participation,
-                      eval_every=eval_every, verbose=verbose,
+                      eval_every=eval_every, verbose=verbose and self.exec_plan.lead,
                       checkpoint_path=checkpoint_path,
                       checkpoint_every=checkpoint_every, resume=resume,
                       on_round=on_round)

@@ -16,15 +16,16 @@ Per round, as in the JAX package's cohort plane:
      the simulated times and the scheduler.
 
 The :class:`~repro_torch.fed.execplan.ExecPlan` picks the plane, that is
-how many clients one cohort program takes: ``cohort`` (the whole cohort),
-``chunked`` (``chunk_size`` clients at a time) or ``loop`` (one client at a
-time); all three run ``DTFLTrainer._train_chunked``. ``topology="pairing"``
+which clients one cohort program takes: ``cohort`` (the whole cohort),
+``chunked`` (``chunk_size`` clients at a time), ``loop`` (one client at a
+time) or ``sharded`` (this rank's slice of every cohort, its weighted sums
+all-reduced over the process group), all four through
+``DTFLTrainer._train_chunked``. ``topology="pairing"``
 lets fast clients host slow clients' far halves in the time model
 (``core/topology.py``); training is the same. The rounds, events and
 async engines run it (``fed/engine.py``); ``save_state``/``load_state``
 carry the run through a checkpoint envelope (``checkpoint/``). The
-scheduler and codec names resolve through ``repro_torch.registry``. The
-sharded plane is not yet ported.
+scheduler and codec names resolve through ``repro_torch.registry``.
 """
 from __future__ import annotations
 
@@ -291,51 +292,68 @@ class DTFLTrainer:
         return float(plan.times.max()), plan.assign
 
     def _train_chunked(self, r, participants, assign):
-        """Every plane: each (tier, shape) cohort's client axis is cut into
-        chunks of ``exec_plan.width`` clients (the whole cohort, the chunk
-        size, or 1 on the loop plane), each run through the same cohort
-        program, so the training working set on the device (stacked
-        batches, per-client optimizer states, activations) is O(width). The
-        chunks' outputs stay on the device; each cohort's stack is
-        reassembled with its pad columns dropped, and the N_k/N average and
-        the per-tier aux heads come from ``weighted_average_cohorts``
-        (``repro/fed/dtfl.py:411-457``). At width 1 every leaf of an upload
-        is one row, so a per-row codec (int8) sends one scale per tensor, as
-        the JAX package's loop plane does."""
-        merged_trees, merged_ws = [], []
+        """Every plane (``repro/fed/dtfl.py:375-457``): each (tier, shape)
+        cohort's client axis is cut into the plan's slices
+        (``ExecPlan.slices``): chunks of the whole cohort, the chunk size or
+        1 client, or on the sharded plane this rank's columns of a cohort
+        padded to a multiple of the ranks (pad clients: zero batches, no
+        step, weight 0). Each slice runs the same cohort program, so the
+        training working set on the device (stacked batches, per-client
+        optimizer states, activations) is O(slice). The slices' outputs
+        stay on the device; each cohort's stack, pad columns dropped, is
+        contracted against its clients' N_k (``weighted_sum``) and summed
+        over the ranks with its weight total (``all_reduce_tree``, the
+        identity off the sharded plane); one ``combine_weighted_sums`` gives
+        the N_k/N average and each tier's aux head. So every plane at one
+        rank is the cohort plane's math in its order, bit for bit, and n
+        ranks differ from it only in the order of the cross-rank sum. With
+        more than one rank the new residuals of a slice go to every rank
+        (``gather_clients``), so every rank holds the same residual store,
+        as the JAX package's single controller does. At width 1 every leaf
+        of an upload is one row, so a per-row codec (int8) sends one scale
+        per tensor, as the JAX package's loop plane does."""
+        plan = self.exec_plan
+        sums, totals = [], []
         aux_by_tier: dict[int, list] = {}
         cohorts = cohort_engine.build_cohorts(
             self.clients, participants, assign, r, self.local_epochs,
-            pad_multiple=self.exec_plan.pad_multiple,
+            pad_multiple=plan.pad_multiple,
         )
         for co in cohorts:
             prog = self._cohort_program(co.tier)
-            width = self.exec_plan.width(co.mask.shape[1])
+            n_cols = co.mask.shape[1]
+            slices = plan.slices(n_cols)
             mchunks, achunks = [], []
-            for sl in cohort_engine.chunk_slices(co.mask.shape[1], width):
+            for sl in slices:
                 b, m = cohort_engine.slice_clients(co.batches, co.mask, sl)
                 b = self._batches(b)
                 if self.codec.stateful:
-                    cids_c = co.cids[sl.start:min(sl.stop, co.size)]
-                    efc, efa = self._gather_ef_cids(cids_c, co.tier, width)
+                    cids_c = co.cids[sl.start:sl.stop]
+                    efc, efa = self._gather_ef_cids(cids_c, co.tier, sl.stop - sl.start)
                     merged, upa, efc2, efa2 = prog(
                         self.params, self.aux[co.tier], b, m, efc, efa)
+                    if plan.n_shards > 1:
+                        cids_c = co.cids
+                        efc2 = plan.gather_clients(efc2, n_cols)
+                        efa2 = plan.gather_clients(efa2, n_cols)
                     self._scatter_ef_cids(cids_c, co.tier, efc2, efa2)
                 else:
                     merged, upa = prog(self.params, self.aux[co.tier], b, m)
                 mchunks.append(merged)
                 achunks.append(upa)
-            n = co.size  # reassemble the cohort stack, drop pad columns
-            cat = lambda *xs: torch.cat(xs)[:n]
-            merged_trees.append(tree_map(cat, *mchunks))
-            w = [len(self.clients[k].dataset) for k in co.cids]
-            merged_ws.append(w)
-            aux_by_tier.setdefault(co.tier, []).append((tree_map(cat, *achunks), w))
+            real = co.cids[slices[0].start:slices[-1].stop]  # pad columns dropped
+            cat = lambda *xs: torch.cat(xs)[:len(real)]
+            w = [len(self.clients[k].dataset) for k in real]
+            total = plan.all_reduce_scalar(
+                torch.as_tensor(w, dtype=torch.float32, device=self.device).sum())
+            sums.append(plan.all_reduce_tree(tree_map(cat, *mchunks), scaled_by=w))
+            totals.append(total)
+            aux_by_tier.setdefault(co.tier, []).append(
+                (plan.all_reduce_tree(tree_map(cat, *achunks), scaled_by=w), total))
         for tier, parts in aux_by_tier.items():
-            self.aux[tier] = aggregation.weighted_average_cohorts(
-                [a for a, _ in parts], [w for _, w in parts]
-            )
-        return aggregation.weighted_average_cohorts(merged_trees, merged_ws)
+            self.aux[tier] = aggregation.combine_weighted_sums(
+                [a for a, _ in parts], [t for _, t in parts], like=self.aux[tier])
+        return aggregation.combine_weighted_sums(sums, totals, like=self.params)
 
     # ------------------------------------------------------------------
     # error-feedback state (stateful codecs), repro/fed/dtfl.py:506-551:
@@ -518,9 +536,9 @@ class DTFLTrainer:
         ``checkpoint_path`` gets a resume envelope every
         ``checkpoint_every`` rounds and at the end; ``resume`` is a loaded
         envelope to continue. ``on_round(trainer, log)`` is called after
-        each round."""
+        each round. On the sharded plane only rank 0 prints."""
         common = dict(target_acc=target_acc, participation=participation,
-                      eval_every=eval_every, verbose=verbose,
+                      eval_every=eval_every, verbose=verbose and self.exec_plan.lead,
                       checkpoint_path=checkpoint_path,
                       checkpoint_every=checkpoint_every, resume=resume,
                       on_round=on_round)

@@ -11,7 +11,10 @@ events between them. The async engine also calls ``train_group(r, plan,
 trained) -> (tree, weight)``, which trains a group without committing the
 result, and ``async_groups(cids, n_groups)``, the fast-to-slow speed groups.
 Every engine fills ``RoundLog.wall_s`` and calls ``on_round(trainer, log)``
-after each round (each merge, under async).
+after each round (each merge, under async). On the sharded plane every
+rank runs the engine and returns the same logs; only rank 0 writes
+checkpoints (and prints: the trainers' ``run`` passes ``verbose`` on rank 0
+only).
 """
 from __future__ import annotations
 
@@ -110,6 +113,15 @@ def save_train_state(path: str, trainer, *, round_: int, clock: float,
     ckpt.save(path, state)
 
 
+def _save_on_lead(path: str, trainer, **kw) -> None:
+    """:func:`save_train_state` on rank 0 only (``ExecPlan.lead``; every
+    process of an unsharded run); the other ranks wait for it at a
+    barrier. Every rank holds the same state."""
+    if trainer.exec_plan.lead:
+        save_train_state(path, trainer, **kw)
+    trainer.exec_plan.barrier()
+
+
 def apply_resume(trainer, resume: dict, rng: np.random.Generator,
                  *, engine: str) -> tuple[int, float, float]:
     """Restore a :func:`save_train_state` envelope into ``trainer`` and the
@@ -198,14 +210,14 @@ def run_rounds(
             print(f"[{trainer.name}] r={r} clock={clock:.0f}s acc={acc:.3f}"
                   f"{tiers}{pairs} wall={logs[-1].wall_s:.2f}s")
         if checkpoint_path and (r + 1) % checkpoint_every == 0:
-            save_train_state(checkpoint_path, trainer, round_=r + 1,
-                             clock=clock, rng=rng, acc=acc)
+            _save_on_lead(checkpoint_path, trainer, round_=r + 1,
+                          clock=clock, rng=rng, acc=acc)
         if target_acc is not None and acc >= target_acc:
             break
     if checkpoint_path:
-        save_train_state(checkpoint_path, trainer, round_=next_round,
-                         clock=clock, rng=rng,
-                         acc=logs[-1].acc if logs else last_acc)
+        _save_on_lead(checkpoint_path, trainer, round_=next_round,
+                      clock=clock, rng=rng,
+                      acc=logs[-1].acc if logs else last_acc)
     return logs
 
 
@@ -222,10 +234,11 @@ def _eval_setup(trainer, eval_batch):
 
 
 def _synced_wall(trainer, t0: float) -> float:
-    """Host seconds since ``t0`` once the device has finished the work."""
+    """Host seconds since ``t0`` once the device has finished the work; on
+    the sharded plane the slowest rank's, so every rank logs the same."""
     if trainer.device.type == "cuda":
         torch.cuda.synchronize(trainer.device)
-    return time.perf_counter() - t0
+    return trainer.exec_plan.max_over_ranks(time.perf_counter() - t0, trainer.device)
 
 
 # ===========================================================================
@@ -364,15 +377,15 @@ def run_events(
                   + (f" pairs={sorted(hosts.items())}" if hosts else "")
                   + f" wall={logs[-1].wall_s:.2f}s")
         if checkpoint_path and (r + 1) % checkpoint_every == 0:
-            save_train_state(checkpoint_path, trainer, round_=r + 1,
-                             clock=q.now, rng=rng, acc=acc, engine="events")
+            _save_on_lead(checkpoint_path, trainer, round_=r + 1,
+                          clock=q.now, rng=rng, acc=acc, engine="events")
         if target_acc is not None and acc >= target_acc:
             break
     if checkpoint_path:
-        save_train_state(checkpoint_path, trainer, round_=next_round,
-                         clock=q.now, rng=rng,
-                         acc=logs[-1].acc if logs else last_acc,
-                         engine="events")
+        _save_on_lead(checkpoint_path, trainer, round_=next_round,
+                      clock=q.now, rng=rng,
+                      acc=logs[-1].acc if logs else last_acc,
+                      engine="events")
     return logs
 
 
@@ -543,13 +556,13 @@ def run_async(
                 print(f"[async:{trainer.name}] merge={merges} group={g} "
                       f"clock={q.now:.0f}s acc={acc:.3f} wall={logs[-1].wall_s:.2f}s")
             if checkpoint_path and merges % checkpoint_every == 0:
-                save_train_state(checkpoint_path, trainer, round_=merges,
-                                 clock=q.now, acc=acc, engine="async")
+                _save_on_lead(checkpoint_path, trainer, round_=merges,
+                              clock=q.now, acc=acc, engine="async")
             if target_acc is not None and acc >= target_acc:
                 break
         wave_idx[g] += 1
         launch(g)
     if checkpoint_path:
-        save_train_state(checkpoint_path, trainer, round_=merges, clock=q.now,
-                         acc=logs[-1].acc, engine="async")
+        _save_on_lead(checkpoint_path, trainer, round_=merges, clock=q.now,
+                      acc=logs[-1].acc, engine="async")
     return logs

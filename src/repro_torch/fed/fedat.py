@@ -23,11 +23,14 @@ class FedATTrainer(BaseTrainer):
         self.n_groups = n_groups
         self.staleness_lambda = staleness_lambda
 
-    def run(self, n_rounds, eval_batch, *, engine: str = "async", n_groups=None, **kw):
+    def run(self, n_rounds, eval_batch, *, engine: str = "async", n_groups=None,
+            verbose: bool = False, **kw):
         """FedAT is async by construction; another ``engine`` runs FedAvg
-        with FedAT's time profile (for debugging)."""
+        with FedAT's time profile (for debugging). On the sharded plane
+        only rank 0 prints."""
         if engine == "async":
             return round_engine.run_async(
                 self, n_rounds, eval_batch, n_groups=n_groups or self.n_groups,
-                staleness_lambda=self.staleness_lambda, **kw)
-        return super().run(n_rounds, eval_batch, engine=engine, **kw)
+                staleness_lambda=self.staleness_lambda,
+                verbose=verbose and self.exec_plan.lead, **kw)
+        return super().run(n_rounds, eval_batch, engine=engine, verbose=verbose, **kw)

@@ -8,9 +8,11 @@ defaults are the JAX CLI's, plus ``--device``: the run goes to the card
 unless ``--device cpu``. String knobs (``--method``, ``--scheduler``,
 ``--codec``, ``--arch``, ``--dataset``, ``--engine``, ``--exec``,
 ``--topology``) are validated against the port's registries at parse time:
-a typo fails with the registered choice set, and a name the port does not
-have yet (``--exec sharded``) fails with "not yet ported"; ``--devices``
-(the sharded plane's mesh) raises "not yet ported" when the run is built.
+a typo fails with the registered choice set. ``--exec sharded --devices N``
+runs one process a device over ``torch.distributed`` (``launch/mesh.py``):
+launch N ranks with ``torchrun``; one rank needs no launcher. Every rank
+trains its slice of each cohort; only rank 0 prints and writes ``--out``,
+``--out-spec`` and ``--out-ckpt``.
 ``--arch whisper-base`` and ``pixtral-12b`` go as far as the JAX CLI goes:
 their LM batches carry no frontend, so the first client step raises
 ``KeyError: 'frontend'``, as ``repro/models/model.py:64`` and ``:72`` do.
@@ -21,6 +23,8 @@ their LM batches carry no frontend, so the first client step raises
       --clients 4 --rounds 4 --out-ckpt state.npz --save-every 2 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train ... --resume state.npz
   PYTHONPATH=src python -m repro_torch.launch.train ... --engine async --n-groups 3
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \\
+      --arch resnet-56 --clients 5 --exec sharded --devices 2 --device cpu
 """
 from __future__ import annotations
 
@@ -102,9 +106,14 @@ def build_parser() -> argparse.ArgumentParser:
                     type=_registry_type(registry.exec_modes),
                     help="cohort: one program per tier cohort; chunked: the "
                          "same program --chunk-size clients at a time; loop: "
-                         "one client at a time; sharded: not yet ported")
+                         "one client at a time; sharded: each cohort's client "
+                         "axis split over the ranks of a torch.distributed "
+                         "group (NCCL on the card, gloo on the CPU), the "
+                         "weighted sums all-reduced — see --devices")
     ap.add_argument("--devices", type=int, default=None,
-                    help="mesh size for --exec sharded: not yet ported")
+                    help="ranks for --exec sharded (default: the launched "
+                         "ranks, or 1). More than one needs torchrun "
+                         "--nproc-per-node N, one rank a device")
     ap.add_argument("--chunk-size", type=int, default=None,
                     help="client-chunk length for --exec chunked (default "
                          "16)")
@@ -199,22 +208,24 @@ def main(argv=None, *, on_round=None):
         spec = spec_from_args(args)
     except SpecError as e:
         ap.error(str(e))
-    if args.out_spec:
+    fed = spec.build(device=args.device)
+    plan = fed.trainer.exec_plan   # on the sharded plane, rank 0 prints and writes
+    if args.out_spec and plan.lead:
         with open(args.out_spec, "w") as f:
             f.write(spec.to_json(indent=1))
-
-    fed = spec.build(device=args.device)
     t0 = time.time()
     try:
         logs = fed.run(verbose=True, on_round=on_round)
     except SpecError as e:  # e.g. resume-envelope spec-hash mismatch
         ap.error(str(e))
     wall = time.time() - t0
-    print(f"[train] {args.method} {args.arch}: {len(logs)} rounds, "
-          f"sim_clock={logs[-1].clock:,.0f}s acc={logs[-1].acc:.3f} wall={wall:.0f}s")
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump([l.__dict__ for l in logs], f, default=str, indent=1)
+    if plan.lead:
+        print(f"[train] {args.method} {args.arch}: {len(logs)} rounds, "
+              f"sim_clock={logs[-1].clock:,.0f}s acc={logs[-1].acc:.3f} wall={wall:.0f}s")
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump([l.__dict__ for l in logs], f, default=str, indent=1)
+    plan.barrier()
     return logs
 
 

@@ -4,9 +4,9 @@ Table 1-6 / figure setups as named specs.
 A copy of the JAX package's factories: each returns a plain
 :class:`repro_torch.api.ExperimentSpec` whose JSON and ``spec_hash`` equal
 the JAX package's preset of the same name and arguments; callers refine
-with ``spec.with_overrides({...})``. Every preset builds a spec; building a
-Federation from one that names a component the port does not have yet (the
-sharded plane) raises "not yet ported".
+with ``spec.with_overrides({...})``. Every preset builds a spec, and every
+spec a Federation; a sharded spec with ``devices > 1`` needs its ranks
+launched (``launch/mesh.py``).
 
 ``PRESETS`` maps preset names to zero-argument factories (default
 arguments).

@@ -18,7 +18,7 @@ both packages. Lazy targets point at ``repro_torch`` modules.
 A component the port does not have yet stays registered under its name
 with ``ported=False``: a spec naming it validates and hashes as in the JAX
 package, and building or loading it raises ``NotImplementedError("... not
-yet ported")``. That covers exec mode ``sharded``.
+yet ported")``. No component is left unported.
 
 The module is stdlib-only at import time; factories import their
 implementation lazily when built.
@@ -316,7 +316,7 @@ register_engine("events", sync=True)
 register_engine("async", sync=False)
 
 for _m in ("loop", "cohort", "sharded", "chunked"):
-    exec_modes.register(_m, ported=_m != "sharded")
+    exec_modes.register(_m)
 
 # the paper's four image benchmarks (data/synthetic.DATASETS) + the noisier
 # variants the Table-1/Table-5 protocols train on, + the token-LM family

@@ -150,12 +150,14 @@ def test_registries_match_jax():
 
 
 def test_unported_components_are_registered_and_refused():
-    """Only the sharded plane is still to port: every arch builds (the
-    encoder-decoder and VLM archs then fail at their first step, as the JAX
-    package's do, ``tests/test_torch_encdec_vlm.py``)."""
+    """Nothing is left to port: every arch builds (the encoder-decoder and
+    VLM archs then fail at their first step, as the JAX package's do,
+    ``tests/test_torch_encdec_vlm.py``), and a sharded spec over more ranks
+    than were launched is refused with the launcher's command line
+    (``tests/test_torch_sharded.py`` runs the plane)."""
     unported = {"trainers": [],
                 "archs": [],
-                "exec_modes": ["sharded"]}
+                "exec_modes": []}
     for name, names in unported.items():
         reg = getattr(registry, name)
         assert sorted(n for n in reg.names() if not reg.is_ported(n)) == sorted(names)
@@ -164,13 +166,17 @@ def test_unported_components_are_registered_and_refused():
                 reg.load(n) if name == "trainers" else reg.build(n)
     for arch in ("whisper-base", "pixtral-12b"):
         assert registry.archs.build(arch).name == arch
+    assert registry.exec_modes.is_ported("sharded")
     for spec in (dataclasses.replace(presets.llm("granite-3-2b"),
                                      exec=ExecSpec(mode="sharded", devices=2)),
-                 presets.table4_wall(exec_mode="sharded", devices=2),
-                 presets.table4_wall(devices=2)):
+                 presets.table4_wall(exec_mode="sharded", devices=2)):
         assert spec.spec_hash() == japi.ExperimentSpec.from_json(spec.to_json()).spec_hash()
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+        with pytest.raises(RuntimeError, match="torchrun --standalone --nproc-per-node 2"):
             spec.build(device="cpu")
+    # --devices outside the sharded plane is ignored, as the JAX package does
+    spec = presets.table4_wall(devices=2)
+    assert spec.spec_hash() == japi.ExperimentSpec.from_json(spec.to_json()).spec_hash()
+    assert spec.build(device="cpu").trainer.exec_plan.mode == "cohort"
     for spec in (presets.llm("whisper-base"), presets.llm("pixtral-12b"),
                  presets.llm("whisper-base", clients=2, seq_len=16)):
         assert spec.spec_hash() == japi.ExperimentSpec.from_json(spec.to_json()).spec_hash()

@@ -97,16 +97,15 @@ def test_unported_options_fail_loudly(capsys, tmp_path):
     assert len(DTFLTrainer(*_tiny_trainer_args(), device="cpu").run(
         1, eval_batch, engine="async", n_groups=2)) == 3
     capsys.readouterr()
-    # options still to port: names fail at parse time, the mesh when built;
-    # every assigned arch parses (whisper-base and pixtral-12b since ported)
+    # every assigned arch and exec mode parses (whisper-base and pixtral-12b
+    # since ported, the sharded plane too); a sharded run over more ranks
+    # than were launched fails loudly, naming the launcher
     for arch in ("whisper-base", "pixtral-12b"):
         assert train.build_parser().parse_args(["--arch", arch]).arch == arch
-    for extra in (["--exec", "sharded"],):
-        with pytest.raises(SystemExit):
-            train.build_parser().parse_args(extra)
-        assert "not yet ported" in capsys.readouterr().err, extra
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        train.main(argv + ["--devices", "4"])
+    assert train.build_parser().parse_args(["--exec", "sharded"]).exec_mode == "sharded"
+    assert "not yet ported" not in capsys.readouterr().err
+    with pytest.raises(RuntimeError, match="torchrun --standalone --nproc-per-node 4"):
+        train.main(argv + ["--exec", "sharded", "--devices", "4"])
 
 
 def test_transformer_cli_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch, capsys):
