@@ -71,10 +71,12 @@ Phases (any failure exits non-zero and prints no result line):
      whose rows are not 16-byte aligned, (2,048, 64,000), (4,096, 102,400),
      (2,048, 202,048) and hymba's odd (4,096 and 2,048, 32,001);
      whisper-base's encoder (4, 1,500, 8/8, 64) without a mask), K4's
-     every shape in bf16 and fp32; K4's forward alone at the shapes no
-     backward kernel takes (``ATTN_FORWARD_CASES``: whisper-base's
-     cross-attention (4, 448 -> 1,500, 8/8, 64), pixtral-12b's heads (1,
-     2,048, 32/8, 160), ragged ones) (the absolute tolerances of
+     every shape in bf16 and fp32; across lengths and at hd 160
+     (``ATTN_FORWARD_CASES``: whisper-base's cross-attention (4, 448 ->
+     1,500, 8/8, 64) and the dry-run train step's (2, 4,096 -> 1,500),
+     ragged ones) the forward and, across lengths, the backward too (the
+     square kernels over query chunks), pixtral-12b's heads (1, 2,048,
+     32/8, 160) forward only (the absolute tolerances of
      tests/test_torch_kernels.py: K4 fp32 2e-5 forward and 1e-4 backward,
      bf16 rtol 2e-2 with atol 1e-2; K3 loss 2e-4, gradient rtol 1e-5 fp32
      and 1e-2 bf16); K4's backward and both K3 kernels must be
@@ -192,6 +194,21 @@ Phases (any failure exits non-zero and prints no result line):
      pad: only rank 0 prints; rank 0's logs and envelope (parameters, aux
      heads, residuals) against the cohort plane on the card, as phase 19
      holds the chunked plane. Nothing checks more than one card.
+ 23b. dry-run steps: SmolLM-360M at full width and all 32 layers, its four
+     dry-run steps (``launch/steps.py``; ``DRYRUN_STEPS``): the DTFL tier-4
+     train step at train_4k with the largest batch the one-card reckoning
+     keeps under 60 GiB, prefill_32k at batch 1, decode_32k at 32 (a full
+     32,768-slot cache), long_500k at 1 on the 8,192-slot ring at its last
+     position. Each is traced on fake CUDA tensors
+     (``launch/dryrun.py::trace_step``, no launch count may move), then run
+     on the card: the peak allocated against the reckoned peak,
+     FlopCounterMode's FLOPs on the card against the fake trace's (they
+     must be equal), the device time and its share of 989 TFLOP/s, the
+     launches (train: K3 and K4 both ways; prefill: K4's forward). Then K4
+     at (B, 4,096, 15/5, 64) both ways and its forward at (1, 32,768,
+     15/5, 64), and K3 at (B x 4,096, 49,152), against their plain
+     versions taken a sequence (and 2,048 queries) at a time. Their timed
+     rows come after phase 11's (plain versions by events alone).
 The LLM configs (after phase 14; ``LLM_RUNS``, ``LLM_ARCHS``). The
 configs keep their published widths; the depth and the client count are
 cut until one card holds the run, by a reckoning from the shapes on the
@@ -231,7 +248,10 @@ printed before each run beside its measured peak:
  28. the reduced variants of the six configs on the card and on the CPU,
      as phase 6 (granite-3-2b also with ``--dcor-alpha 0.5``); for the MoE
      configs the count of routes that differ when the CPU run's final model
-     routes one batch on the card and on the CPU.
+     routes one batch on the card and on the CPU. ``reduced()`` (the JAX
+     package's) cuts granite-3-2b, yi-6b and deepseek-67b to SmolLM's
+     reduced model, so these three run ``LLM_REDUCED``'s variants, each
+     keeping its GQA ratio and vocab residue.
  29. serving (``SERVE_RUNS``) through ``launch/serve.py`` at full width,
      batch 4, prompt 16, weights from seed 0, each step one CUDA-graph
      replay of torch ops: hymba-1.5b at its 32 layers for 1,024 tokens (the
@@ -651,7 +671,7 @@ def _bound(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
-def _cuda_ms(fn, x) -> float:
+def _cuda_ms(fn, x, iters: int = TIMED_ITERS) -> float:
     import torch
 
     for _ in range(3):
@@ -659,11 +679,24 @@ def _cuda_ms(fn, x) -> float:
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    for _ in range(TIMED_ITERS):
+    for _ in range(iters):
         fn(x)
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / TIMED_ITERS
+    return start.elapsed_time(end) / iters
+
+
+# calls a plain version is timed over where its materialized intermediates
+# take tens of GB (the dry-run rows): CUDA events only, no graph
+BIG_PLAIN_ITERS = 3
+
+
+def _plain_times(fn, x, big: bool) -> dict:
+    """The plain version's ms (CUDA events) and device ms (a CUDA graph);
+    with ``big``, BIG_PLAIN_ITERS calls by events alone."""
+    if big:
+        return {"plain_ms": _cuda_ms(fn, x, BIG_PLAIN_ITERS)}
+    return {"plain_ms": _cuda_ms(fn, x), "plain_device_ms": _graph_ms(fn, x)}
 
 
 def _graph_ms(fn, x) -> float:
@@ -2064,13 +2097,16 @@ ATTN_CASES = [
     ("whisper-base encoder", 4, 1500, 8, 8, 64, False, 0),
 ]
 ATTN_DTYPES = ("bfloat16", "float32")
-# K4 forward-only cases (no backward kernel takes them yet): (label, N, Sq,
-# Sk, H, KV, hd, causal, window), each in bf16 and fp32. whisper-base's
-# cross-attention (448 decoder positions, Whisper's n_text_ctx, over 1,500
-# frames), ragged ones, and pixtral-12b's heads at hd 160: one 1,024-patch
-# image followed by 1,024 text tokens
+# K4 cases across lengths or at hd 160: (label, N, Sq, Sk, H, KV, hd, causal,
+# window), each in bf16 and fp32; the backward too where it takes the
+# shape (Sq != Sk at hd <= 128: the square kernels over query chunks).
+# whisper-base's cross-attention (448 decoder positions, Whisper's
+# n_text_ctx, over 1,500 frames; and the dry-run's train step, 4,096 tokens
+# over them), ragged ones, and pixtral-12b's heads at hd 160 (forward only):
+# one 1,024-patch image followed by 1,024 text tokens
 ATTN_FORWARD_CASES = [
     ("whisper-base cross-attention", 4, 448, 1500, 8, 8, 64, False, 0),
+    ("whisper-base dry-run train cross-attention", 2, 4096, 1500, 8, 8, 64, False, 0),
     ("cross-attention, ragged, G = 2", 3, 70, 130, 4, 2, 64, False, 0),
     ("pixtral-12b heads", 1, 2048, 2048, 32, 8, 160, True, 0),
     ("hd 160 across lengths", 2, 100, 37, 4, 1, 160, False, 0),
@@ -2251,8 +2287,9 @@ def _check_k3(label: str, T: int, V: int, dtype, g) -> tuple[float, float]:
 def _check_k4_forward(label: str, N: int, Sq: int, Sk: int, H: int, KV: int, hd: int,
                       causal: bool, window: int, dtype, g) -> tuple[float, float]:
     """K4's forward at one shape and dtype against its plain version (the
-    tolerances of ``_check_k4``): the shapes no backward kernel takes yet,
-    Sq != Sk (cross-attention) and hd above 128. Returns (max |diff|, 0.0)."""
+    tolerances of ``_check_k4``): hd above 128, where no backward kernel
+    takes the shape yet, and the forward of ``_check_k4_across``. Returns
+    (max |diff|, 0.0)."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -2271,8 +2308,42 @@ def _check_k4_forward(label: str, N: int, Sq: int, Sk: int, H: int, KV: int, hd:
         fail(f"flash_attention forward differs from its plain version on {label} {dt}: "
              f"max |diff| {fwd}")
     print(f"[kernels] flash_attention {label} {(N, Sq, Sk, H, KV, hd)} {dt} causal={causal} "
-          f"window={window}: forward max |diff| {fwd:.3g} (forward only)")
+          f"window={window}: forward max |diff| {fwd:.3g}")
     return fwd, 0.0
+
+
+def _check_k4_across(label: str, N: int, Sq: int, Sk: int, H: int, KV: int, hd: int,
+                     dtype, g) -> tuple[float, float]:
+    """K4 without a mask at Sq != Sk, forward (``_check_k4_forward``) and
+    backward (the square kernels over query chunks) against the plain
+    versions, with ``_check_k4``'s tolerances; the backward bit-identical
+    run to run. Returns the max forward and backward |diff|."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import attention_bwd_ref
+
+    fwd, _ = _check_k4_forward(label, N, Sq, Sk, H, KV, hd, False, 0, dtype, g)
+    q, do = (torch.randn(N, Sq, H, hd, generator=g, device="cuda").to(dtype) for _ in "qd")
+    k, v = (torch.randn(N, Sk, KV, hd, generator=g, device="cuda").to(dtype) for _ in "kv")
+    o, lse = fa.attn_forward(q, k, v, causal=False)
+    grads = fa.attn_backward(q, k, v, o, lse, do, causal=False)
+    if not all(torch.equal(a, b) for a, b in zip(
+            grads, fa.attn_backward(q, k, v, o, lse, do, causal=False))):
+        fail(f"flash_attention backward is not bit-identical run to run on {label}")
+    want = attention_bwd_ref(q, k, v, o, lse, do, causal=False)
+    tol = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 1e-2)
+    bwd = 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), grads, want):
+        ok, d = _close(a, b, *tol)
+        bwd = max(bwd, d)
+        if not ok:
+            fail(f"flash_attention backward {name} differs from its plain version on {label} "
+                 f"{dtype}: max |diff| {d}")
+    print(f"[kernels] flash_attention {label} {(N, Sq, Sk, H, KV, hd)} "
+          f"{str(dtype).removeprefix('torch.')} no mask: backward max |diff| {bwd:.3g} (over "
+          f"{-(-Sq // Sk)} query chunk(s)), bit-identical run to run")
+    return fwd, bwd
 
 
 def _check_k4_key(label: str, key: tuple, g) -> tuple[float, float]:
@@ -2282,9 +2353,11 @@ def _check_k4_key(label: str, key: tuple, g) -> tuple[float, float]:
     from repro_torch.kernels import flash_attention as fa
 
     N, Sq, Sk, H, KV, hd, causal, window, dtype = key
-    if Sq == Sk and hd <= fa.MAX_BWD_HEAD_DIM:
+    if hd > fa.MAX_BWD_HEAD_DIM:
+        return _check_k4_forward(label, *key, g)
+    if Sq == Sk:
         return _check_k4(label, N, Sq, H, KV, hd, causal, window, dtype, g)
-    return _check_k4_forward(label, *key, g)
+    return _check_k4_across(label, N, Sq, Sk, H, KV, hd, dtype, g)
 
 
 def _merge_err(err: dict, name: str, fwd: float, bwd: float) -> None:
@@ -2327,8 +2400,7 @@ def phase_k3_k4() -> dict:
     for (label, *shape), dt in product(ATTN_CASES, ATTN_DTYPES):
         _merge_err(err, "flash_attention", *_check_k4(label, *shape, getattr(torch, dt), g))
     for (label, *shape), dt in product(ATTN_FORWARD_CASES, ATTN_DTYPES):
-        _merge_err(err, "flash_attention",
-                   *_check_k4_forward(label, *shape, getattr(torch, dt), g))
+        _merge_err(err, "flash_attention", *_check_k4_key(label, (*shape, getattr(torch, dt)), g))
     for label, T, V, dt in XENT_CASES:
         _merge_err(err, "fused_xent", *_check_k3(label, T, V, getattr(torch, dt), g))
     return err
@@ -2410,7 +2482,8 @@ def phase_transformer_run() -> tuple[dict, dict]:
 
 def _k4_times(N: int, S: int, H: int, KV: int, hd: int, g, window: int = 0,
               dtype: str = "bfloat16", causal: bool = True, Sk: "int | None" = None,
-              backward: bool = True) -> dict:
+              backward: bool = True, plain_fwd=None, plain_bwd=None, big: bool = False
+              ) -> dict:
     """K4 at (N, S, H/KV, hd) (keys of length ``Sk``, S by default), causal
     or not (and windowed if ``window``), in ``dtype`` (bf16 on the tensor
     cores, fp32 on the FMA units): CUDA events and CUDA-graph device time
@@ -2419,7 +2492,10 @@ def _k4_times(N: int, S: int, H: int, KV: int, hd: int, g, window: int = 0,
     the backward yardstick is its forward and autograd's backward, both
     captured), beside the bound, which counts the (query, key) pairs the
     mask keeps. Without ``backward`` (shapes no backward kernel takes) the
-    forward alone."""
+    forward alone. ``plain_fwd`` and ``plain_bwd`` (called as
+    ``attention_ref`` and ``attention_bwd_ref``) stand for the plain
+    versions where their whole score matrices would not fit; with ``big``
+    the plain versions are timed as ``_plain_times`` says."""
     import torch
     import torch.nn.functional as F
 
@@ -2442,41 +2518,40 @@ def _k4_times(N: int, S: int, H: int, KV: int, hd: int, g, window: int = 0,
         sdpa = partial(F.scaled_dot_product_attention, is_causal=causal, enable_gqa=True)
     mask = dict(causal=causal, window=window)
     fwd_fn = partial(fa.attn_forward, k=k, v=v, **mask)
-    fwd_plain = partial(attention_ref, k=k, v=v, **mask)
+    fwd_plain = partial(plain_fwd or attention_ref, k=k, v=v, **mask)
     lib_fwd = lambda t: sdpa(t, kt, vt)                                          # noqa: E731
     attn = {
         "forward": {"ms": _cuda_ms(fwd_fn, q), "device_ms": _graph_ms(fwd_fn, q),
-                    "plain_ms": _cuda_ms(fwd_plain, q), "plain_device_ms": _graph_ms(fwd_plain, q),
+                    **_plain_times(fwd_plain, q, big),
                     "library_ms": _cuda_ms(lib_fwd, qt),
                     "library_device_ms": _graph_ms(lib_fwd, qt)},
     }
     if backward:
         bwd_fn = partial(fa.attn_backward, k=k, v=v, o=o, lse=lse, do=do, **mask)
-        bwd_plain = partial(attention_bwd_ref, k=k, v=v, o=o, lse=lse, do=do, **mask)
+        bwd_plain = partial(plain_bwd or attention_bwd_ref, k=k, v=v, o=o, lse=lse, do=do,
+                            **mask)
         dot = do.transpose(1, 2)
         lib_bwd = lambda t: torch.autograd.grad(sdpa(t, kr, vr), (t, kr, vr), dot)  # noqa: E731
         attn["backward"] = {"ms": _cuda_ms(bwd_fn, q), "device_ms": _graph_ms(bwd_fn, q),
-                            "plain_ms": _cuda_ms(bwd_plain, q),
-                            "plain_device_ms": _graph_ms(bwd_plain, q),
+                            **_plain_times(bwd_plain, q, big),
                             "library_ms": _cuda_ms(lib_bwd, qr),
                             "library_device_ms": _graph_ms(lib_bwd, qr)}
-    # the (query, key) pairs causality and the window keep
-    if causal:
-        pairs = N * H * sum(min(i + 1, window or S) for i in range(S))
-    else:
-        pairs = N * H * int(_visible(S, Sk, False, window, "cpu").sum())
+    # the products over the (query, key) pairs causality and the window
+    # keep, as the kernel's FLOP formulas count them
     size = q.element_size()
     rate = BF16_OPS_PER_S if dt == torch.bfloat16 else FP32_OPS_PER_S
     q_bytes, kv_bytes, lse_bytes = size * N * S * H * hd, size * N * Sk * KV * hd, 4 * N * H * S
     attn["forward"]["bound_ms"], attn["forward"]["bound_by"] = _bound(
-        2 * q_bytes + 2 * kv_bytes + lse_bytes, 2 * 2 * pairs * hd, rate)
+        2 * q_bytes + 2 * kv_bytes + lse_bytes,
+        fa.forward_flops(N, S, Sk, H, hd, causal, window), rate)
     if backward:
         attn["backward"]["bound_ms"], attn["backward"]["bound_by"] = _bound(
-            4 * q_bytes + 4 * kv_bytes + lse_bytes, 5 * 2 * pairs * hd, rate)
+            4 * q_bytes + 4 * kv_bytes + lse_bytes,
+            fa.backward_flops(N, S, Sk, H, hd, causal, window), rate)
     return attn
 
 
-def _k3_times(T: int, V: int, dtype, g) -> dict:
+def _k3_times(T: int, V: int, dtype, g, big: bool = False) -> dict:
     """K3 at (T, V) in ``dtype``, as ``_k4_times``; the yardstick is
     ``F.cross_entropy`` (``reduction="none"``). The bound counts the
     logits' bytes at their element size, the int64 labels, and the fp32
@@ -2500,13 +2575,11 @@ def _k3_times(T: int, V: int, dtype, g) -> dict:
     xlib_bwd = lambda t: torch.autograd.grad(xlib_fwd(t), t, gt)                # noqa: E731
     xent = {
         "forward": {"ms": _cuda_ms(xfwd, logits), "device_ms": _graph_ms(xfwd, logits),
-                    "plain_ms": _cuda_ms(xfwd_plain, logits),
-                    "plain_device_ms": _graph_ms(xfwd_plain, logits),
+                    **_plain_times(xfwd_plain, logits, big),
                     "library_ms": _cuda_ms(xlib_fwd, logits),
                     "library_device_ms": _graph_ms(xlib_fwd, logits)},
         "backward": {"ms": _cuda_ms(xbwd, logits), "device_ms": _graph_ms(xbwd, logits),
-                     "plain_ms": _cuda_ms(xbwd_plain, logits),
-                     "plain_device_ms": _graph_ms(xbwd_plain, logits),
+                     **_plain_times(xbwd_plain, logits, big),
                      "library_ms": _cuda_ms(xlib_bwd, lr),
                      "library_device_ms": _graph_ms(xlib_bwd, lr)},
     }
@@ -2520,9 +2593,11 @@ def _k3_times(T: int, V: int, dtype, g) -> dict:
 
 def _print_times(name: str, shape: str, times: dict) -> None:
     for direction, t in times.items():
+        plain_device = (f"device {t['plain_device_ms']:.4f} ms" if "plain_device_ms" in t
+                        else f"events alone, {BIG_PLAIN_ITERS} calls")
         print(f"[kernels] {name} {direction} at {shape}: kernel {t['ms']:.4f} ms (device "
-              f"{t['device_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms (device "
-              f"{t['plain_device_ms']:.4f} ms), library {t['library_ms']:.4f} ms (device "
+              f"{t['device_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms ({plain_device}), "
+              f"library {t['library_ms']:.4f} ms (device "
               f"{t['library_device_ms']:.4f} ms), bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']}), {100 * t['bound_ms'] / t['device_ms']:.1f}% of it on "
               f"device time")
@@ -2778,28 +2853,6 @@ def phase_xlstm_run() -> tuple[dict, dict]:
     return launches, _check_launched("xLSTM run")
 
 
-def _mlstm_work(BH: int, S: int, dh: int) -> tuple[float, float, float, float]:
-    """The fp32 operations and bytes K5's forward and backward need on these
-    shapes, in chunks of 256: products only where s <= t, no product with the
-    zero state of the first chunk, no state update after the last. Returns
-    (forward ops, forward bytes, backward ops, backward bytes)."""
-    from repro_torch.kernels.mlstm_chunk import CHUNK
-
-    lens = [min(CHUNK, S - c0) for c0 in range(0, S, CHUNK)]
-    tri = sum(L * (L + 1) // 2 for L in lens) * dh          # one causal (P, P, dh) product
-    mid = sum(L for L in lens[1:]) * dh * dh                # q C, or its transpose
-    end = sum(L for L in lens[:-1]) * dh * dh               # the state update
-    fwd_macs = 2 * tri + mid + end + 2 * S * dh             # scores, A v; n.q, n update
-    # backward: dA = g v^T, dS k, dS^T q, A^T g; C g (dq), dC v and k dC (dk,
-    # dv), the dC walk. The gate terms come from dA * A with A kept from the
-    # forward; the kernel's recompute of the scores is its own choice, not
-    # counted.
-    bwd_macs = 4 * tri + 2 * mid + 2 * end + 3 * S * dh
-    row = BH * S * dh * 4
-    return (2.0 * BH * fwd_macs, 4.0 * row + 8 * BH * S,
-            2.0 * BH * bwd_macs, 8.0 * row + 16 * BH * S)
-
-
 def k5_kernel_profile(BH: int, S: int, dh: int) -> None:
     """torch.profiler over ten K5 forwards and backwards at (BH, S, dh) fp32:
     the per-call device ms of every traced kernel whose name holds "mlstm",
@@ -2865,7 +2918,7 @@ def phase_k5_times(err: dict) -> list[dict]:
         "backward": {"ms": _cuda_ms(bwd_fn, q), "device_ms": _graph_ms(bwd_fn, q),
                      "plain_ms": _cuda_ms(bwd_plain, q), "library_ms": None},
     }
-    fops, fbytes, bops, bbytes = _mlstm_work(BH, S, dh)
+    fops, fbytes, bops, bbytes = mk.mlstm_work(BH, S, dh)
     times["forward"]["bound_ms"], times["forward"]["bound_by"] = _bound(fbytes, fops)
     times["backward"]["bound_ms"], times["backward"]["bound_by"] = _bound(bbytes, bops)
     entries = []
@@ -2912,6 +2965,37 @@ SHAPE_LAUNCHES: Counter = Counter()
 # the reduced configs on the card and the CPU: the CLI at --arch (SMOLLM_SMALL's sizes)
 LLM_ARCHS = ("granite-3-2b", "yi-6b", "deepseek-67b", "deepseek-moe-16b",
              "llama4-scout-17b-a16e", "hymba-1.5b")
+# ArchConfig.reduced() (equal to the JAX package's) cuts the three dense
+# configs below to SmolLM-360M's reduced model; their card-against-CPU
+# phases reduce them so instead, each keeping its GQA ratio (query heads a
+# KV head), head dim up to 64 and vocab residue mod 64 (granite's 49,155
+# leaves bf16 logit rows off 16-byte alignment), 2 layers in 2 modules
+LLM_REDUCED = {
+    "granite-3-2b": dict(d_model=256, n_heads=8, n_kv_heads=2, head_dim=32, d_ff=1024,
+                         vocab=515),
+    "yi-6b": dict(d_model=512, n_heads=8, n_kv_heads=1, head_dim=64, d_ff=1376, vocab=512),
+    "deepseek-67b": dict(d_model=512, n_heads=16, n_kv_heads=2, head_dim=32, d_ff=1376,
+                         vocab=512),
+}
+
+
+@contextmanager
+def _reduced_keeping_traits():
+    """``ArchConfig.reduced`` giving LLM_REDUCED's variants of its configs
+    (every other config as it was), for the CLI's runs inside the block."""
+    from repro_torch.configs.base import ArchConfig
+
+    plain = ArchConfig.reduced
+
+    def reduced(cfg):
+        small = plain(cfg)
+        return small.replace(**LLM_REDUCED[cfg.name]) if cfg.name in LLM_REDUCED else small
+
+    ArchConfig.reduced = reduced
+    try:
+        yield
+    finally:
+        ArchConfig.reduced = plain
 
 
 def _llm_trainer(arch, n_layers, n_modules, clients, batch, dcor_alpha):
@@ -3204,8 +3288,12 @@ def phase_llm_reference(arch: str, extra: list[str]) -> None:
     argv = ["--arch", arch, "--clients", "4", "--batch-size", "4", "--seq-len", "64",
             "--rounds", "3"] + extra
     moe_family = get_config(arch).family == "moe"
-    gtr, ctr = phase_small_reference(argv, " ".join([arch] + extra),
-                                     MOE_REFERENCE_BOUNDS if moe_family else (0.5, 0.1, 0.01))
+    with _reduced_keeping_traits():
+        gtr, ctr = phase_small_reference(argv, " ".join([arch] + extra),
+                                         MOE_REFERENCE_BOUNDS if moe_family else (0.5, 0.1, 0.01))
+    cfg = ctr.adapter.cfg
+    print(f"[reference]   {arch} reduced: d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads at hd {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}")
     if not moe_family:
         return
     batch = {k: torch.from_numpy(v) for k, v in next(ctr.clients[0].dataset.epoch(0)).items()}
@@ -3674,6 +3762,287 @@ def phase_pixtral_image() -> dict:
     return _check_launched("pixtral-12b image forward")
 
 
+# SmolLM-360M's four dry-run steps (launch/steps.py) at full width and all
+# 32 layers on one card: (input shape, batch); the train step's batch, None,
+# is the largest the dry-run's one-card reckoning admits under DRYRUN_GIB
+DRYRUN_ARCH = "smollm-360m"
+DRYRUN_GIB = 60.0
+DRYRUN_STEPS = (("train_4k", None), ("prefill_32k", 1), ("decode_32k", 32), ("long_500k", 1))
+K4_PLAIN_BLOCK = 2_048     # query rows a block of the plain forward at 32,768 positions
+
+
+def _dryrun_batch(cfg, shape, mesh) -> int:
+    """The largest batch whose reckoned one-card peak stays under
+    DRYRUN_GIB. The peak is the larger of the activations' (affine in the
+    batch) and the optimizer's (fixed), so it is extrapolated from batches
+    2 and 4 and then stepped down, traced at each step, until it fits."""
+    import dataclasses
+
+    from repro_torch.launch import dryrun, steps
+
+    def peak(b: int) -> int:
+        cut = dataclasses.replace(shape, global_batch=b)
+        return dryrun.trace_step(steps.builder_for(cut)(cfg, cut, mesh), mesh)["peak_bytes"]
+
+    limit = DRYRUN_GIB * 2**30
+    p2, p4 = peak(2), peak(4)
+    batch = max(1, 2 + int((limit - p2) // ((p4 - p2) / 2)))
+    while batch > 1 and peak(batch) > limit:
+        batch -= 1
+    print(f"[dryrun] {shape.name}: reckoned peak {p2 / 2**30:.3f} GiB at batch 2, "
+          f"{p4 / 2**30:.3f} at 4: batch {batch} under {DRYRUN_GIB:g} GiB")
+    return batch
+
+
+def _attention_prefix_ref(q, k, v, q0: int):
+    """``kernels/ref.py::attention_ref``'s arithmetic for the causal queries
+    at positions q0.. (``q``) against the keys of their prefix (``k``,
+    ``v``): (o, lse)."""
+    import math
+
+    import torch
+
+    N, b, H, hd = q.shape
+    KV = k.shape[2]
+    s = torch.einsum("nqkgd,nskd->nkgqs", q.float().reshape(N, b, KV, H // KV, hd),
+                     k.float()) * (1.0 / math.sqrt(hd))
+    vis = (torch.arange(b, device=q.device)[:, None] + q0
+           >= torch.arange(k.shape[1], device=q.device)[None, :])
+    s = torch.where(vis, s, -torch.inf)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(vis, torch.exp(s - m), 0.0)
+    l = torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
+    acc = torch.einsum("nkgqs,nskd->nkgqd", p.to(v.dtype).float(), v.float())
+    o = (acc / l).permute(0, 3, 1, 2, 4).reshape(N, b, H, hd).to(q.dtype)
+    return o, (m + torch.log(l)).reshape(N, H, b)
+
+
+def _attention_blocked_ref(q, k, v, causal: bool = True, window: int = 0):
+    """The plain causal forward, K4_PLAIN_BLOCK queries at a time, each block
+    against its causal prefix: (o, lse) as ``attention_ref``'s, without its
+    S x S scores."""
+    import torch
+
+    if not causal or window:
+        raise ValueError("the blocked plain forward is causal and unwindowed")
+
+    parts = [_attention_prefix_ref(q[:, q0:q0 + K4_PLAIN_BLOCK], k[:, :q0 + K4_PLAIN_BLOCK],
+                                   v[:, :q0 + K4_PLAIN_BLOCK], q0)
+             for q0 in range(0, q.shape[1], K4_PLAIN_BLOCK)]
+    return torch.cat([o for o, _ in parts], dim=1), torch.cat([lse for _, lse in parts], dim=2)
+
+
+def _per_sequence(fn):
+    """``fn`` (``attention_ref`` or ``attention_bwd_ref``) taken one sequence
+    at a time, its outputs joined on the batch axis: the plain version
+    without a whole batch's score matrices."""
+    import torch
+
+    def run(q, k, v, **kw):
+        parts = [fn(q[n:n + 1], k[n:n + 1], v[n:n + 1],
+                    **{a: (t[n:n + 1] if torch.is_tensor(t) else t) for a, t in kw.items()})
+                 for n in range(q.shape[0])]
+        return tuple(torch.cat(ts) for ts in zip(*parts))
+
+    return run
+
+
+def _check_k4_by_parts(label: str, N: int, S: int, H: int, KV: int, hd: int, g,
+                       backward: bool) -> tuple[float, float]:
+    """K4, causal bf16, at the whole (N, S, H/KV, hd) against its plain
+    versions taken a sequence at a time (the forward in K4_PLAIN_BLOCK
+    query blocks), with ``_check_k4``'s tolerances; the backward
+    bit-identical run to run. Returns the max forward and backward |diff|."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import attention_bwd_ref
+
+    q, do = (torch.randn(N, S, H, hd, generator=g, device="cuda").bfloat16() for _ in "qd")
+    k, v = (torch.randn(N, S, KV, hd, generator=g, device="cuda").bfloat16() for _ in "kv")
+    o, lse = fa.attn_forward(q, k, v, causal=True)
+    if backward:
+        grads = fa.attn_backward(q, k, v, o, lse, do, causal=True)
+        if not all(torch.equal(a, b) for a, b in zip(
+                grads, fa.attn_backward(q, k, v, o, lse, do, causal=True))):
+            fail(f"flash_attention backward is not bit-identical run to run on {label}")
+    fwd = bwd = 0.0
+    for n in range(N):
+        o_want, lse_want = _attention_blocked_ref(q[n:n + 1], k[n:n + 1], v[n:n + 1])
+        ok, d = _close(o[n:n + 1], o_want, 2e-2, 1e-2)
+        fwd = max(fwd, d)
+        if not ok or not torch.allclose(lse[n:n + 1], lse_want, atol=1e-5, rtol=1e-5):
+            fail(f"flash_attention forward differs from its plain version on {label}, "
+                 f"sequence {n}: max |diff| {d}")
+        if backward:
+            want = attention_bwd_ref(*(t[n:n + 1] for t in (q, k, v, o, lse, do)), causal=True)
+            for name, got, w in zip(("dq", "dk", "dv"), grads, want):
+                ok, d = _close(got[n:n + 1], w, 2e-2, 1e-2)
+                bwd = max(bwd, d)
+                if not ok:
+                    fail(f"flash_attention backward {name} differs from its plain version on "
+                         f"{label}, sequence {n}: max |diff| {d}")
+    print(f"[kernels] flash_attention {label} {(N, S, H, KV, hd)} bfloat16 causal: forward max "
+          f"|diff| {fwd:.3g}" + (f", backward max |diff| {bwd:.3g}, backward bit-identical "
+                                 f"run to run" if backward else ", forward only")
+          + "; the plain version a sequence at a time")
+    return fwd, bwd
+
+
+def _step_counts() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_xent as fx
+
+    return {"K3": dict(fx.LAUNCHES), "K4": dict(fa.LAUNCHES)}
+
+
+def phase_dryrun_steps() -> dict:
+    """SmolLM-360M's four dry-run steps at full width and depth, each built
+    by ``launch/steps.py`` at its cut batch (``DRYRUN_STEPS``): the fake
+    trace's reckoning at one card (``launch/dryrun.py::trace_step``, fake
+    CUDA tensors), then the same step on real tensors: its peak allocated
+    against the reckoned peak, FlopCounterMode's count against the fake
+    trace's (they must be equal), its device time (CUDA events, one call
+    after two) and achieved share of 989 TFLOP/s, printed. The fake traces
+    move no launch count; the real train and prefill steps must launch K3
+    and K4 (train) or K4 (prefill). Then K4 at the train step's (B, 4,096,
+    15/5, 64) forward and backward, K4's forward at (1, 32,768, 15/5, 64)
+    and K3 at the train step's rows are held against their plain versions.
+    Returns the K3 and K4 errors and the shapes to time."""
+    import dataclasses
+    import gc
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.tree import tree_leaves
+
+    cfg, mesh = get_config(DRYRUN_ARCH), make_host_mesh()
+    err = {f"{k}_{d}": 0.0 for k in ("flash_attention", "fused_xent")
+           for d in ("forward", "backward")}
+    print(f"[dryrun] {DRYRUN_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, vocab {cfg.vocab}; one card, steps built by "
+          f"launch/steps.py, traced on {steps.trace_device()} fake tensors")
+    batches = {}
+    for name, batch in DRYRUN_STEPS:
+        shape = INPUT_SHAPES[name]
+        batch = batch or _dryrun_batch(cfg, shape, mesh)
+        batches[name] = batch
+        cut = dataclasses.replace(shape, global_batch=batch)
+        builder = steps.builder_for(cut)
+        counts0 = _step_counts()
+        t0 = time.perf_counter()
+        fake = dryrun.trace_step(builder(cfg, cut, mesh), mesh)
+        trace_s = time.perf_counter() - t0
+        if _step_counts() != counts0:
+            fail(f"dry-run {name}: the fake trace moved the launch counts")
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        built = builder(cfg, cut, mesh, device="cuda")
+        if shape.kind == "decode":
+            built["args"][2]["pos"].fill_(shape.seq_len - 1)   # a full cache (the ring's wrap)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _clear_shapes()
+        out = built["fn"](*built["args"])
+        torch.cuda.synchronize()
+        _record_shapes()
+        peak = torch.cuda.max_memory_allocated() - before
+        launched = {k: {d: _step_counts()[k][d] - counts0[k][d] for d in counts0[k]}
+                    for k in counts0}
+        # the decode's cache (43 GB at 32 sequences) is written in place: its logits
+        if not all(torch.isfinite(t).all() for t in tree_leaves(
+                out[0] if shape.kind == "decode" else out)
+                   if torch.is_tensor(t) and t.is_floating_point()):
+            fail(f"dry-run {name}: the step's outputs are not finite")
+        del out
+        need = {"train": [(k, d) for k in ("K3", "K4") for d in ("forward", "backward")],
+                "prefill": [("K4", "forward")], "decode": []}[shape.kind]
+        if any(launched[k][d] <= 0 for k, d in need):
+            fail(f"dry-run {name}: the step launched {launched}")
+        with FlopCounterMode(display=False) as counter:
+            out = built["fn"](*built["args"])
+        del out
+        if counter.get_total_flops() != fake["flops"]:
+            fail(f"dry-run {name}: FlopCounterMode counts {counter.get_total_flops()} on the "
+                 f"card, {fake['flops']} on the fake trace")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = built["fn"](*built["args"])
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        del out, built
+        _clear_shapes()
+        gap = peak / fake["peak_bytes"] - 1
+        print(f"[dryrun] {name} (batch {batch} x {shape.seq_len}): peak allocated "
+              f"{peak / 2**30:.3f} GiB, reckoned {fake['peak_bytes'] / 2**30:.3f} GiB (arguments "
+              f"{fake['held_bytes'] / 2**30:.3f}; gap {100 * gap:+.1f}%); FLOPs "
+              f"{fake['flops']:.6g} counted on the card and in the fake trace "
+              f"(traced in {trace_s:.1f} s); device time {ms:.3f} ms, "
+              f"{100 * fake['flops'] / (ms * 1e-3) / BF16_OPS_PER_S:.2f}% of 989 TFLOP/s; "
+              f"launches K3 {launched['K3']}, K4 {launched['K4']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(12)
+    B = batches["train_4k"]
+    _merge_err(err, "flash_attention", *_check_k4_by_parts(
+        "dry-run train_4k", B, 4_096, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, g,
+        True))
+    _merge_err(err, "flash_attention", *_check_k4_by_parts(
+        "dry-run prefill_32k", 1, 32_768, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+        g, False))
+    _merge_err(err, "fused_xent", *_check_k3("dry-run train_4k rows", B * 4_096,
+                                             cfg.padded_vocab, torch.bfloat16, g))
+    return {"err": err, "train_batch": B}
+
+
+def phase_dryrun_times(train_batch: int, err: dict) -> list[dict]:
+    """K4 and K3 at the dry-run steps' new shapes, timed as phase 11 times
+    the path's (``_k4_times``, ``_k3_times``): K4 at (B, 4,096, 15/5, 64)
+    both ways, K4's forward at (1, 32,768, 15/5, 64) (its plain version
+    in K4_PLAIN_BLOCK query blocks: the whole score matrix would take 64
+    GB), K3 at (B x 4,096, 49,152) bf16; their launches are the dry-run
+    steps' at exactly these shapes. The plain versions' intermediates take
+    tens of GB here: they are timed by events alone (``_plain_times``)."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(DRYRUN_ARCH)
+    H, KV, hd, V = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.padded_vocab
+    g = torch.Generator(device="cuda").manual_seed(13)
+    entries = []
+    from repro_torch.kernels.ref import attention_bwd_ref, attention_ref
+
+    for N, S, backward, plain_fwd, plain_bwd in (
+            (train_batch, 4_096, True, _per_sequence(attention_ref),
+             _per_sequence(attention_bwd_ref)),
+            (1, 32_768, False, _attention_blocked_ref, None)):
+        times = _k4_times(N, S, H, KV, hd, g, backward=backward, plain_fwd=plain_fwd,
+                          plain_bwd=plain_bwd, big=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        shape = f"({N}, {S}, {H}/{KV}, {hd}) bfloat16 causal"
+        _print_times("flash_attention", shape, times)
+        entries += _entries("flash_attention", times, "flash_attention.cu",
+                            "flash_attention.py:75", err, f" at dry-run {shape}",
+                            (N, S, S, H, KV, hd, True, 0, torch.bfloat16))
+    T = train_batch * 4_096
+    times = _k3_times(T, V, torch.bfloat16, g, big=True)
+    _print_times("fused_xent", f"({T}, {V}) bfloat16", times)
+    entries += _entries("fused_xent", times, "fused_xent.cu", "fused_xent.py:62", err,
+                        f" at dry-run ({T}, {V}) bfloat16", (T, V, torch.bfloat16))
+    return entries
+
+
 def k3_alone(src: Path) -> None:
     """``python3 chip_smoke.py --k3 [SRC]``: K3 alone, from the port under
     SRC (this checkout's ``src`` by default): build it, its build report,
@@ -3796,6 +4165,11 @@ def main() -> None:
     _phase("sharded FedAvg", 8, phase_sharded_one_rank,
            BASELINE_ARGV + ["--method", "fedavg", "--codec", "int8"], "fedavg int8")
     _phase("sharded, 2 ranks", 2, phase_sharded_two_ranks)
+    # SmolLM-360M's four dry-run steps at full width and depth: the train
+    # step's batch is cut to a reckoned DRYRUN_GIB, the decode's cache takes 43 GB
+    dry = _phase("dry-run steps", 72, phase_dryrun_steps)
+    for name, e in dry["err"].items():
+        k34_err[name] = max(k34_err[name], e)
     entry["launches"] = k1_launches
     _phase("K1 device time", 1, phase_k1_device_time, entry)
     k2_fwd, k2_bwd = _phase("K2 times", 1, phase_k2_times, *k2_err)
@@ -3803,6 +4177,7 @@ def main() -> None:
     for name, err in K3_LAUNCHED_ERR.items():
         k34_err[name] = max(k34_err[name], err)
     k34 = _phase("K3/K4 times", 15, phase_k3_k4_times, k34_err)
+    k34 += _phase("dry-run K3/K4 times", 30, phase_dryrun_times, dry["train_batch"], k34_err)
     k5 = _phase("K5 times", 3, phase_k5_times, k5_err)
     _phase("K2 profile", 1, phase_k2_profile)
     _phase("dcor profile", 5, phase_rounds_profile, "dcor run", DCOR_PROFILE_ARGV,

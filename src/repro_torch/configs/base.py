@@ -3,8 +3,9 @@
 Verbatim copy of ``ArchConfig`` except ``param_count`` and
 ``active_param_count``, which read the port's analytic count
 (``models/model.py::count_params_analytic``, shapes of ``init`` on the meta
-device) in place of ``jax.eval_shape``. ``InputShape`` and the serving
-input shapes come with the serving path.
+device) in place of ``jax.eval_shape``. ``InputShape`` and
+``INPUT_SHAPES``, the dry-run's (arch x input shape) grid
+(``launch/dryrun.py``), are verbatim copies.
 """
 from __future__ import annotations
 
@@ -134,3 +135,19 @@ class ArchConfig:
         from repro_torch.models.model import count_params_analytic
 
         return count_params_analytic(self, active_only=True)
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}

@@ -24,7 +24,7 @@ import torch
 
 from repro_torch import privacy
 from repro_torch.core import splitting, tiering, timemodel
-from repro_torch.core.local_loss import token_xent
+from repro_torch.core.local_loss import MOE_AUX_WEIGHT, token_xent
 from repro_torch.models import model as M
 from repro_torch.models import resnet as R
 from repro_torch.tree import tree_map
@@ -115,19 +115,18 @@ class ResNetAdapter:
 
 
 class TransformerAdapter:
-    """The transformer archs: the dense family (SmolLM-360M, granite-3-2b,
-    yi-6b, deepseek-67b), the MoE family (deepseek-moe-16b, llama4-scout;
-    each loss adds ``0.01 * moe_aux``, the blocks' load-balance loss, (C,))
-    the xLSTM family (xLSTM-350M: mLSTM blocks on kernel K5, every
-    ``slstm_every``-th an sLSTM block, its ``is_slstm`` flags split and
-    merged with the other stacked leaves) and the hybrid family
-    (hymba-1.5b: windowed attention beside the Mamba heads). The
-    encoder-decoder and VLM families (whisper-base, pixtral-12b) build, and
-    their first step raises ``KeyError: 'frontend'`` as the JAX package's
-    does: the LM batches carry tokens and labels only. ``dcor_alpha > 0`` adds the §4.4
-    regularizer to the client loss, between the embedded tokens and the
-    uploaded activations (``privacy.dcor``, on kernel K2), as
-    ``repro/fed/adapter.py:157-162``."""
+    """The transformer archs: the dense family (SmolLM-360M, granite-3-2b, yi-6b,
+    deepseek-67b), the MoE family (deepseek-moe-16b, llama4-scout; each loss
+    adds ``MOE_AUX_WEIGHT * moe_aux`` (0.01 x), the blocks' load-balance loss,
+    (C,)) the xLSTM family (xLSTM-350M: mLSTM blocks on kernel K5, every
+    ``slstm_every``-th an sLSTM block, its ``is_slstm`` flags split and merged
+    with the other stacked leaves) and the hybrid family (hymba-1.5b: windowed
+    attention beside the Mamba heads). The encoder-decoder and VLM families
+    (whisper-base, pixtral-12b) build, and their first step raises ``KeyError:
+    'frontend'`` as the JAX package's does: the LM batches carry tokens and
+    labels only. ``dcor_alpha > 0`` adds the §4.4 regularizer to the client
+    loss, between the embedded tokens and the uploaded activations
+    (``privacy.dcor``, on kernel K2), as ``repro/fed/adapter.py:157-162``."""
 
     def __init__(self, cfg, *, seq_len: int, cost_cfg=None, dcor_alpha: float = 0.0):
         # DTFL split training unties embeddings: the halves live on
@@ -158,7 +157,7 @@ class TransformerAdapter:
                     rng: torch.Generator | None = None):
         z, moe_aux = M.client_forward(cp, self.cfg, batch)
         logits = M.aux_head_apply(ap, self.cfg, z)
-        loss = token_xent(logits, batch["labels"], batch.get("mask")) + 0.01 * moe_aux
+        loss = token_xent(logits, batch["labels"], batch.get("mask")) + MOE_AUX_WEIGHT * moe_aux
         if self.dcor_alpha > 0.0:
             x_in = M.embed_tokens(cp, self.cfg, batch)
             loss = (1 - self.dcor_alpha) * loss + self.dcor_alpha * privacy.dcor(x_in, z)
@@ -166,11 +165,11 @@ class TransformerAdapter:
 
     def server_loss(self, sp: Params, z: torch.Tensor, batch: dict, tier: int):
         logits, moe_aux = M.server_forward(sp, self.cfg, z)
-        return token_xent(logits, batch["labels"], batch.get("mask")) + 0.01 * moe_aux
+        return token_xent(logits, batch["labels"], batch.get("mask")) + MOE_AUX_WEIGHT * moe_aux
 
     def full_loss(self, params: Params, batch: dict):
         logits, moe_aux = M.forward(params, self.cfg, batch)
-        return token_xent(logits, batch["labels"], batch.get("mask")) + 0.01 * moe_aux
+        return token_xent(logits, batch["labels"], batch.get("mask")) + MOE_AUX_WEIGHT * moe_aux
 
     # ---- FedGKT hooks (leading client axis) ----
     def client_features(self, cp: Params, batch: dict) -> torch.Tensor:

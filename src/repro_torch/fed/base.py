@@ -60,6 +60,18 @@ def kd_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
     return (per * w).sum(dim=dims) / torch.clamp_min(w.sum(dim=dims), 1.0) * temp * temp
 
 
+def full_step(adapter, opt):
+    """The full-model step ``step({"p": params, "o": opt_state}, batch) ->
+    (state, loss)`` over a cohort's client axis, the loss (C,)."""
+
+    def step(state, batch):
+        loss, _, g = _value_and_grad(lambda p: (adapter.full_loss(p, batch), None), state["p"])
+        p, o = opt.update(state["p"], g, state["o"])
+        return {"p": p, "o": o}, loss
+
+    return step
+
+
 class BaseTrainer:
     """Round scaffolding of the full-model baselines; the hook defaults are
     FedAvg. ``device=None`` runs on the card."""
@@ -168,15 +180,8 @@ class BaseTrainer:
     # the full-model planes
     # ------------------------------------------------------------------
     def _full_step(self):
-        """The full-model step over a cohort's client axis."""
-        ad, opt = self.adapter, self.opt
-
-        def step(state, batch):
-            loss, _, g = _value_and_grad(lambda p: (ad.full_loss(p, batch), None), state["p"])
-            p, o = opt.update(state["p"], g, state["o"])
-            return {"p": p, "o": o}, loss
-
-        return step
+        """The full-model step over a cohort's client axis (:func:`full_step`)."""
+        return full_step(self.adapter, self.opt)
 
     def _cohort_program(self):
         """Download wire, optimizer init, the steps over the client axis,

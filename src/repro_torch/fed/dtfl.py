@@ -77,6 +77,33 @@ def _value_and_grad(loss_fn, tree):
     return loss.detach(), aux, tree_unflatten(tree, grads)
 
 
+def tier_step(adapter, opt, codec, tier: "int | None"):
+    """The DTFL step ``step(state, batch) -> (state, (client_loss,
+    server_loss))`` over a cohort's client axis, every loss (C,). The
+    client loss and the server loss keep separate gradients
+    (``repro/fed/dtfl.py:131-143``); the activation uplink ``z`` is
+    detached and round-tripped through ``codec`` before the server loss
+    (the client's own aux loss sees the uncompressed activations); an
+    encoder-decoder's uplink ``(z, enc_out)`` each. A transformer's server
+    half needs no ``tier``: its blocks say where it starts."""
+
+    def step(state: DTFLStepState, batch: dict):
+        closs, z, grads = _value_and_grad(
+            lambda ca: adapter.client_loss(ca[0], ca[1], batch),
+            (state.client, state.aux))
+        cg, ag = grads
+        # an encoder-decoder's uplink is (z, enc_out): each goes over the wire
+        z = tree_map(lambda t: codec.rt(t.detach()), z)
+        sloss, _, sg = _value_and_grad(
+            lambda sp: (adapter.server_loss(sp, z, batch, tier), None), state.server)
+        c, co = opt.update(state.client, cg, state.c_opt)
+        a, ao = opt.update(state.aux, ag, state.a_opt)
+        s, so = opt.update(state.server, sg, state.s_opt)
+        return DTFLStepState(c, a, s, co, ao, so), (closs, sloss)
+
+    return step
+
+
 class DTFLTrainer:
     name = "dtfl"
 
@@ -153,27 +180,9 @@ class DTFLTrainer:
 
     # ------------------------------------------------------------------
     def _raw_step(self, tier: int):
-        """The DTFL step for ``tier`` over a cohort's client axis. The client
-        loss and the server loss keep separate gradients
-        (``repro/fed/dtfl.py:131-143``); the activation uplink ``z`` is
-        detached and round-tripped through the codec before the server loss
-        (the client's own aux loss sees the uncompressed activations)."""
-        ad, opt, codec = self.adapter, self.opt, self.codec
-
-        def step(state: DTFLStepState, batch: dict):
-            closs, z, grads = _value_and_grad(
-                lambda ca: ad.client_loss(ca[0], ca[1], batch),
-                (state.client, state.aux))
-            cg, ag = grads
-            z = codec.rt(z.detach())
-            sloss, _, sg = _value_and_grad(
-                lambda sp: (ad.server_loss(sp, z, batch, tier), None), state.server)
-            c, co = opt.update(state.client, cg, state.c_opt)
-            a, ao = opt.update(state.aux, ag, state.a_opt)
-            s, so = opt.update(state.server, sg, state.s_opt)
-            return DTFLStepState(c, a, s, co, ao, so), (closs, sloss)
-
-        return step
+        """The DTFL step for ``tier`` over a cohort's client axis
+        (:func:`tier_step`)."""
+        return tier_step(self.adapter, self.opt, self.codec, tier)
 
     def _cohort_program(self, tier: int):
         """One tier's cohort: split, download wire, optimizer init, the steps

@@ -1,30 +1,40 @@
 """K4: causal / sliding-window flash attention with grouped KV heads,
-forward and backward; the forward also as cross-attention (Sq != Sk).
+forward and backward, both also as cross-attention (Sq != Sk).
 
 Pair: ``repro/kernels/flash_attention.py:75`` (``flash_attention``, a
 Pallas kernel on (BH, S, hd); body ``_flash_kernel`` at ``:29``). The JAX
 model trains through the jnp chunked ``models/layers.py::attention`` and
 autodiff; here every attention on the card goes through these kernels, so
-``FlashAttention`` carries a backward of its own (FlashAttention-2's, from
+the op carries a backward of its own (FlashAttention-2's, from
 the saved logsumexp).
 
 ``flash_attention(q, k, v, causal=, window=)`` takes the model's layout
 after RoPE: q (N, Sq, H, hd), k and v (N, Sk, KV, hd), H a multiple of KV
-(query head h reads KV head h // (H / KV)), one dtype (fp32 or bf16),
-hd <= 160, any S. Sk may differ from Sq only without a mask
-(``causal=False, window=0``): the decoder's cross-attention over the
-encoder's output, the one way the model calls it. It returns
-(N, Sq, H, hd) in q's dtype, differentiable w.r.t. q, k and v. The
-backward takes Sq = Sk and hd <= 128 only; other shapes raise
-``NotImplementedError`` ("not yet ported") on either device. A CUDA tensor
-goes to the hand-written kernels (``csrc/flash_attention.cu``, built by
-``nvcc`` at first use); a CPU tensor goes to the plain versions
-``kernels/ref.py::attention_ref`` and ``attention_bwd_ref``. Anything else
-raises. ``LAUNCHES`` counts kernel launches on the device: one per
-forward; two per backward (dQ with the row terms D, then dK and dV).
-``SHAPES`` counts the forward's launches by their
-(N, Sq, Sk, H, KV, hd, causal, window, dtype), ``BACKWARD_SHAPES`` the
-backward's by the same key.
+(query head h reads KV head h // (H / KV)), one dtype (fp32 or bf16), hd <=
+160, any S. Sk may differ from Sq only without a mask (``causal=False,
+window=0``): the decoder's cross-attention over the encoder's output, the
+one way the model calls it. It returns (N, Sq, H, hd) in q's dtype,
+differentiable w.r.t. q, k and v. The backward takes hd <= 128 only; above,
+it raises ``NotImplementedError`` ("not yet ported") on either device. Its
+kernels take Sq = Sk; across lengths the wrapper runs them over chunks of
+the queries (``_cross_backward``). A CUDA tensor goes to the hand-written
+kernels (``csrc/flash_attention.cu``, built by ``nvcc`` at first use); a
+CPU tensor goes to the plain versions ``kernels/ref.py::attention_ref`` and
+``attention_bwd_ref``; a fake tensor (of the card, or of the meta device)
+to the ops' fake bodies (below). Anything else raises. ``LAUNCHES`` counts
+kernel launches on the device: one per forward; two per backward (dQ with
+the row terms D, then dK and dV), two a chunk across lengths. ``SHAPES`` counts the forward's launches
+by their (N, Sq, Sk, H, KV, hd, causal, window, dtype), ``BACKWARD_SHAPES``
+the backward's by the same key.
+
+The forward and the backward are registered torch ops
+(``torch.ops.repro_torch.flash_attention_fwd`` and ``_bwd``, joined by
+``register_autograd``), so a trace on fake tensors (``launch/dryrun.py``)
+sees the kernels the card runs: each op has a fake body that allocates
+its true outputs and builds nothing, and a FLOP formula
+(:func:`forward_flops`, :func:`backward_flops`: two products of the
+(query, key) pairs the mask keeps, five in the backward). A fake trace
+moves neither ``LAUNCHES`` nor ``SHAPES``.
 """
 from __future__ import annotations
 
@@ -32,7 +42,10 @@ import ctypes
 from collections import Counter
 import math
 
+import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import nvcc
 from repro_torch.kernels.ref import attention_bwd_ref, attention_ref
@@ -81,7 +94,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes one of float32 / bfloat16 for q, k and v, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda") and not is_fake(q):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention needs q, k and v on one device")
@@ -101,6 +114,26 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"flash_attention {what} launch failed: {msg} (cudaError {err})")
 
 
+def _check_backward(q, k, v, o, lse, do, causal: bool, window: int) -> None:
+    _check(q, k, v, causal, window)
+    if q.shape[3] > MAX_BWD_HEAD_DIM:
+        raise NotImplementedError(
+            f"flash_attention backward at head_dim {q.shape[3]} is not yet ported (it takes "
+            f"head_dim <= {MAX_BWD_HEAD_DIM})")
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError("flash_attention backward takes o and do like q")
+    if lse.shape != (q.shape[0], q.shape[2], q.shape[1]) or lse.dtype != torch.float32:
+        raise ValueError("flash_attention backward takes lse (N, H, S) fp32")
+    for t in (o, do, lse):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError("flash_attention backward needs contiguous tensors on q's device")
+
+
+def _on_card(q: torch.Tensor) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention launches its kernels on a CUDA tensor, got {q.device}")
+
+
 def _scale(hd: int) -> float:
     # the fp32 of 1 / sqrt(hd), as repro/kernels/flash_attention.py:85 has it
     return 1.0 / math.sqrt(hd)
@@ -111,6 +144,7 @@ def attn_forward(q, k, v, *, causal: bool, window: int = 0) -> tuple[torch.Tenso
     _check(q, k, v, causal, window)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
+    _on_card(q)
     N, S, H, hd = q.shape
     Sk = k.shape[1]
     o = torch.empty_like(q)
@@ -132,21 +166,47 @@ def attn_forward(q, k, v, *, causal: bool, window: int = 0) -> tuple[torch.Tenso
 
 def attn_backward(q, k, v, o, lse, do, *, causal: bool, window: int = 0):
     """(dq, dk, dv) of ``sum(do * o)``, ``o, lse = attn_forward(q, k, v)``;
-    Sq = Sk and hd <= 128 only."""
-    _check(q, k, v, causal, window)
-    if k.shape[1] != q.shape[1] or q.shape[3] > MAX_BWD_HEAD_DIM:
-        raise NotImplementedError(
-            f"flash_attention backward at Sq {q.shape[1]}, Sk {k.shape[1]}, head_dim "
-            f"{q.shape[3]} is not yet ported (it takes Sq = Sk, head_dim <= {MAX_BWD_HEAD_DIM})")
-    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
-        raise ValueError("flash_attention backward takes o and do like q")
-    if lse.shape != (q.shape[0], q.shape[2], q.shape[1]) or lse.dtype != torch.float32:
-        raise ValueError("flash_attention backward takes lse (N, H, S) fp32")
-    for t in (o, do, lse):
-        if t.device != q.device or not t.is_contiguous():
-            raise ValueError("flash_attention backward needs contiguous tensors on q's device")
+    hd <= 128 only. On the card, Sq != Sk (cross-attention, no mask) runs
+    the Sq = Sk kernels over chunks of the queries (:func:`_cross_backward`)."""
+    _check_backward(q, k, v, o, lse, do, causal, window)
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window)
+    _on_card(q)
+    if k.shape[1] != q.shape[1]:
+        return _cross_backward(q, k, v, o, lse, do)
+    return _square_backward(q, k, v, o, lse, do, causal, window)
+
+
+def _cross_backward(q, k, v, o, lse, do):
+    """The backward without a mask at Sq != Sk: every query sees every key,
+    so the queries split into independent chunks of Sk rows, each a square
+    problem for :func:`_square_backward`. The last chunk is padded with
+    queries that see no key (lse +inf: their probabilities are 0; o and dO
+    0), which add nothing to dK and dV; dK and dV are summed over the
+    chunks in fp32."""
+    N, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    dq = torch.empty_like(q)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    for q0 in range(0, Sq, Sk):
+        n = min(Sk, Sq - q0)
+        qc, oc, doc = (t[:, q0:q0 + n] for t in (q, o, do))
+        lc = lse[:, :, q0:q0 + n]
+        if n < Sk:
+            pad = q.new_zeros((N, Sk - n, H, hd))
+            qc, oc, doc = (torch.cat([t, pad], dim=1) for t in (qc, oc, doc))
+            lc = torch.cat([lc, lse.new_full((N, H, Sk - n), torch.inf)], dim=2)
+        cq, ck, cv = _square_backward(qc.contiguous(), k, v, oc.contiguous(), lc.contiguous(),
+                                      doc.contiguous(), False, 0)
+        dq[:, q0:q0 + n] = cq[:, :n]
+        dk += ck
+        dv += cv
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _square_backward(q, k, v, o, lse, do, causal: bool, window: int):
+    """The backward kernels at Sq = Sk."""
     N, S, H, hd = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if N == 0 or S == 0:
@@ -166,26 +226,105 @@ def attn_backward(q, k, v, o, lse, do, *, causal: bool, window: int = 0):
     return dq, dk, dv
 
 
-class FlashAttention(torch.autograd.Function):
-    """q, k, v -> o; the backward is K4's dQ and dK/dV kernels."""
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def _forward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                window: int) -> tuple[torch.Tensor, torch.Tensor]:
+    return attn_forward(q, k, v, causal=causal, window=window)
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        o, lse = attn_forward(q, k, v, causal=causal, window=window)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.window = causal, window
-        return o
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = attn_backward(q, k, v, o, lse, do.contiguous(),
-                                   causal=ctx.causal, window=ctx.window)
-        return dq, dk, dv, None, None
+@_forward_op.register_fake
+def _(q, k, v, causal, window):
+    _check(q, k, v, causal, window)
+    N, S, H, _ = q.shape
+    return torch.empty_like(q), q.new_empty((N, H, S), dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def _backward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                 lse: torch.Tensor, do: torch.Tensor, causal: bool, window: int
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return attn_backward(q, k, v, o, lse, do, causal=causal, window=window)
+
+
+@_backward_op.register_fake
+def _(q, k, v, o, lse, do, causal, window):
+    _check_backward(q, k, v, o, lse, do, causal, window)
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, causal, window = inputs
+    o, lse = output
+    ctx.mark_non_differentiable(lse)
+    ctx.set_materialize_grads(False)
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.causal, ctx.window = causal, window
+
+
+def _backward(ctx, do, _dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    dq, dk, dv = _backward_op(q, k, v, o, lse, do.contiguous(), ctx.causal, ctx.window)
+    return dq, dk, dv, None, None
+
+
+_forward_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+def attention_pairs(N: int, Sq: int, Sk: int, H: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs that causality and the window keep, over the
+    N x H heads: query i sees key j where j <= i (causal) and i - j <
+    window (a window)."""
+    i = np.arange(Sq, dtype=np.int64)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros_like(i)
+    hi = np.minimum(i + 1, Sk) if causal else np.full_like(i, Sk)
+    return N * H * int(np.clip(hi - lo, 0, None).sum())
+
+
+def forward_flops(N: int, Sq: int, Sk: int, H: int, hd: int, causal: bool,
+                  window: int) -> int:
+    """The forward's products, S = Q K^T and O = P V, over the kept pairs."""
+    return 2 * 2 * attention_pairs(N, Sq, Sk, H, causal, window) * hd
+
+
+def backward_flops(N: int, Sq: int, Sk: int, H: int, hd: int, causal: bool,
+                   window: int) -> int:
+    """The backward's five products over the kept pairs: S again, dV, dP, dQ
+    and dK."""
+    return 5 * 2 * attention_pairs(N, Sq, Sk, H, causal, window) * hd
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _forward_flop_formula(q_shape, k_shape, v_shape, causal, window, *args, **kwargs) -> int:
+    N, Sq, H, hd = q_shape
+    return forward_flops(N, Sq, k_shape[1], H, hd, causal, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _backward_flop_formula(q_shape, k_shape, v_shape, o_shape, lse_shape, do_shape, causal,
+                           window, *args, **kwargs) -> int:
+    N, S, H, hd = q_shape
+    return backward_flops(N, S, k_shape[1], H, hd, causal, window)
+
+
+def backward_workspace_bytes(q: torch.Tensor, k: torch.Tensor, *args) -> int:
+    """The backward's scratch beside its outputs: the row terms D, (N, H, S)
+    fp32; across lengths also a chunk's padded q, o, dO and lse and the
+    fp32 sums of dK and dV (a chunk's own dQ, dK and dV not counted)."""
+    N, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    if Sq == Sk:
+        return 4 * N * H * Sq
+    chunk = N * Sk * H * (3 * hd * q.element_size() + 4) + 4 * N * H * Sk
+    return chunk + 2 * 4 * k.numel()
+
+
+# scratch a kernel allocates and frees inside its op, by op; a trace of
+# live bytes adds it at the op (launch/dryrun.py)
+WORKSPACE = {torch.ops.repro_torch.flash_attention_bwd: backward_workspace_bytes}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """Attention in the model's layout: q (N, Sq, H, hd), k and v
     (N, Sk, KV, hd) -> (N, Sq, H, hd), differentiable w.r.t. q, k and v."""
-    return FlashAttention.apply(q, k, v, bool(causal), int(window))
+    return _forward_op(q, k, v, bool(causal), int(window))[0]

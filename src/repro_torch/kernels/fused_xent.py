@@ -3,8 +3,8 @@
 Pair: ``repro/kernels/fused_xent.py:62`` (``fused_xent``, a Pallas kernel;
 body ``_xent_kernel`` at ``:26``). The JAX package trains through the jnp
 ``core/local_loss.py::token_xent`` and autodiff; here every ``token_xent``
-on the card goes through these kernels, so ``FusedXent`` carries a
-backward kernel of its own.
+on the card goes through these kernels, so the op carries a backward
+kernel of its own.
 
 ``fused_xent(logits, labels)`` takes logits (T, V) fp32 or bf16 and labels
 (T,) of any integer dtype, and returns the per-token loss (T,) fp32,
@@ -12,15 +12,24 @@ differentiable w.r.t. ``logits``. Any T and V, and any row alignment: each
 row streams its 16-byte vectors between an element-wise head and tail. A
 CUDA tensor goes to the hand-written kernels (``csrc/fused_xent.cu``, built
 by ``nvcc`` at first use); a CPU tensor goes to the plain versions
-``kernels/ref.py::fused_xent_ref`` and ``fused_xent_bwd_ref``. Anything
-else raises. Both kernels run on the launch shape that :func:`geometry`
-picks from (T, V), the element size and the card's SM count: threads a
-row (split over up to 8 warps at small T, packed several rows a warp at
-small V) and blocks. The backward writes dlogits at the logits' offset
-from a 16-byte boundary, so both share the row's cut. ``LAUNCHES``
-counts kernel launches on the device: one per forward, one per backward.
-``SHAPES`` counts the forward's launches by their (T, V, dtype),
+``kernels/ref.py::fused_xent_ref`` and ``fused_xent_bwd_ref``; a fake
+tensor (of the card, or of the meta device) to the ops' fake bodies.
+Anything else raises. Both kernels run on the launch shape that
+:func:`geometry` picks from (T, V), the element size and the card's SM
+count: threads a row (split over up to 8 warps at small T, packed several
+rows a warp at small V) and blocks. The backward writes dlogits at the
+logits' offset from a 16-byte boundary, so both share the row's cut.
+``LAUNCHES`` counts kernel launches on the device: one per forward, one per
+backward. ``SHAPES`` counts the forward's launches by their (T, V, dtype),
 ``BACKWARD_SHAPES`` the backward's by the same key.
+
+The forward and the backward are registered torch ops
+(``torch.ops.repro_torch.fused_xent_fwd`` and ``_bwd``, joined by
+``register_autograd``), so a trace on fake tensors (``launch/dryrun.py``)
+sees the kernels the card runs: each op has a fake body that allocates
+its true outputs (the per-row loss and lse; dlogits like the logits) and
+builds nothing, and a FLOP formula of 0: neither kernel has a product. A
+fake trace moves neither ``LAUNCHES`` nor ``SHAPES``.
 """
 from __future__ import annotations
 
@@ -29,6 +38,8 @@ from collections import Counter
 from typing import NamedTuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import nvcc
 from repro_torch.kernels.ref import fused_xent_bwd_ref, fused_xent_ref
@@ -97,7 +108,7 @@ def _check(logits: torch.Tensor, labels: torch.Tensor) -> None:
         raise TypeError(f"fused_xent takes float32 or bfloat16 logits, got {logits.dtype}")
     if labels.dtype.is_floating_point or labels.dtype == torch.bool:
         raise TypeError(f"fused_xent takes integer labels, got {labels.dtype}")
-    if logits.device.type not in ("cpu", "cuda"):
+    if logits.device.type not in ("cpu", "cuda") and not is_fake(logits):
         raise ValueError(f"fused_xent: unsupported device {logits.device}")
     if labels.device != logits.device:
         raise ValueError("fused_xent needs labels on the logits' device")
@@ -105,6 +116,20 @@ def _check(logits: torch.Tensor, labels: torch.Tensor) -> None:
         raise ValueError("fused_xent needs contiguous logits")
     if logits.shape[1] == 0:
         raise ValueError("fused_xent needs V >= 1")
+
+
+def _check_backward(logits, labels, lse, g) -> None:
+    _check(logits, labels)
+    for t in (lse, g):
+        if t.shape != labels.shape or t.dtype != torch.float32 or t.device != logits.device:
+            raise ValueError("fused_xent backward takes (T,) fp32 lse and cotangent "
+                             "on the logits' device")
+
+
+def _on_card(logits: torch.Tensor) -> None:
+    if logits.device.type != "cuda":
+        raise ValueError(f"fused_xent launches its kernels on a CUDA tensor, got "
+                         f"{logits.device}")
 
 
 def _labels(labels: torch.Tensor) -> torch.Tensor:
@@ -137,6 +162,7 @@ def xent_forward(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Tens
     _check(logits, labels)
     if logits.device.type == "cpu":
         return fused_xent_ref(logits, labels)
+    _on_card(logits)
     T, V = logits.shape
     loss = torch.empty(T, dtype=torch.float32, device=logits.device)
     lse = torch.empty_like(loss)
@@ -161,13 +187,10 @@ def xent_backward(logits: torch.Tensor, labels: torch.Tensor, lse: torch.Tensor,
                   g: torch.Tensor) -> torch.Tensor:
     """The gradient w.r.t. ``logits`` of ``sum(g * loss)``, in the logits'
     dtype; ``lse`` from :func:`xent_forward`, ``g`` (T,) fp32."""
-    _check(logits, labels)
-    for t in (lse, g):
-        if t.shape != labels.shape or t.dtype != torch.float32 or t.device != logits.device:
-            raise ValueError("fused_xent backward takes (T,) fp32 lse and cotangent "
-                             "on the logits' device")
+    _check_backward(logits, labels, lse, g)
     if logits.device.type == "cpu":
         return fused_xent_bwd_ref(logits, labels, lse, g)
+    _on_card(logits)
     T, V = logits.shape
     if T == 0:
         return torch.empty_like(logits)
@@ -188,22 +211,54 @@ def xent_backward(logits: torch.Tensor, labels: torch.Tensor, lse: torch.Tensor,
     return out
 
 
-class FusedXent(torch.autograd.Function):
-    """(T, V) logits -> (T,) fp32 loss; the backward is K3's second kernel."""
+@torch.library.custom_op("repro_torch::fused_xent_fwd", mutates_args=())
+def _forward_op(logits: torch.Tensor, labels: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    return xent_forward(logits, labels)
 
-    @staticmethod
-    def forward(ctx, logits, labels):
-        loss, lse = xent_forward(logits, labels)
-        ctx.save_for_backward(logits, labels, lse)
-        return loss
 
-    @staticmethod
-    def backward(ctx, g):
-        logits, labels, lse = ctx.saved_tensors
-        return xent_backward(logits, labels, lse, g.float()), None
+@_forward_op.register_fake
+def _(logits, labels):
+    _check(logits, labels)
+    loss = logits.new_empty(logits.shape[:1], dtype=torch.float32)
+    return loss, torch.empty_like(loss)
+
+
+@torch.library.custom_op("repro_torch::fused_xent_bwd", mutates_args=())
+def _backward_op(logits: torch.Tensor, labels: torch.Tensor, lse: torch.Tensor,
+                 g: torch.Tensor) -> torch.Tensor:
+    return xent_backward(logits, labels, lse, g)
+
+
+@_backward_op.register_fake
+def _(logits, labels, lse, g):
+    _check_backward(logits, labels, lse, g)
+    return torch.empty_like(logits)
+
+
+def _setup_context(ctx, inputs, output):
+    logits, labels = inputs
+    _, lse = output
+    ctx.mark_non_differentiable(lse)
+    ctx.set_materialize_grads(False)
+    ctx.save_for_backward(logits, labels, lse)
+
+
+def _backward(ctx, g, _dlse):
+    logits, labels, lse = ctx.saved_tensors
+    return _backward_op(logits, labels, lse, g.float()), None
+
+
+_forward_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+@register_flop_formula([torch.ops.repro_torch.fused_xent_fwd,
+                        torch.ops.repro_torch.fused_xent_bwd])
+def _flop_formula(*args, **kwargs) -> int:
+    return 0
 
 
 def fused_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Per-token cross-entropy: logits (T, V), labels (T,) -> (T,) fp32,
     differentiable w.r.t. ``logits``."""
-    return FusedXent.apply(logits, labels)
+    return _forward_op(logits, labels)[0]

@@ -3,22 +3,31 @@
 Pair: ``repro/kernels/mlstm_chunk.py:71`` (``mlstm_chunk``, a Pallas kernel
 on (BH, S, dh); body ``_mlstm_kernel`` at ``:23``). The JAX model trains
 through the jnp ``models/ssm.py::_mlstm_chunk_scan`` and autodiff; here
-every mLSTM on the card goes through these kernels, so ``MlstmChunk``
-carries a backward of its own.
+every mLSTM on the card goes through these kernels, so the op carries a
+backward of its own.
 
 ``mlstm_chunk(q, k, v, log_f, i_gate)`` takes q, k, v (BH, S, dh) and the
-gates (BH, S), all fp32 and contiguous, dh <= 512, any S; it returns h
-(BH, S, dh) fp32, from zero state, differentiable w.r.t. all five inputs.
-A CUDA tensor goes to the hand-written kernels (``csrc/mlstm_chunk.cu``,
-built by ``nvcc`` at first use, chunks of 256 with a ragged last chunk); a
-CPU tensor goes to the plain version ``kernels/ref.py::mlstm_chunk_ref``
-(the JAX package's op order and chunk rule), whose backward is autograd's.
-Anything else raises. Every product runs on the tensor cores in split
-TF32 (three TF32 products per fp32 one), which keeps fp32 accuracy.
+gates (BH, S), all fp32 and contiguous, dh <= 512, any S; it returns h (BH,
+S, dh) fp32, from zero state, differentiable w.r.t. all five inputs. A CUDA
+tensor goes to the hand-written kernels (``csrc/mlstm_chunk.cu``, built by
+``nvcc`` at first use, chunks of 256 with a ragged last chunk); a CPU
+tensor goes to the plain version ``kernels/ref.py::mlstm_chunk_ref`` (the
+JAX package's op order and chunk rule), whose backward is autograd's. A
+fake tensor (of the card, or of the meta device) goes to the ops' fake
+bodies; anything else raises. Every product runs on the tensor cores in
+split TF32 (three TF32 products per fp32 one), which keeps fp32 accuracy.
 ``LAUNCHES`` counts kernel launches on the device: four per forward (prep,
 scores, state, out), seven per backward (bprep, bstate, bscores, dq, dv,
 dk, gates). ``SHAPES`` counts the forward's launches by (BH, S, dh),
 ``BACKWARD_SHAPES`` the backward's.
+
+The forward and the backward are registered torch ops for CUDA and fake
+tensors (``torch.ops.repro_torch.mlstm_chunk_fwd`` and ``_bwd``, joined by
+``register_autograd``), so a trace on fake tensors (``launch/dryrun.py``)
+sees the kernels the card runs: each op has a fake body that allocates its
+true outputs and builds nothing, a FLOP formula (:func:`mlstm_work`'s
+operations) and its scratch in ``WORKSPACE``. A fake trace moves neither
+``LAUNCHES`` nor ``SHAPES``.
 """
 from __future__ import annotations
 
@@ -26,6 +35,9 @@ import ctypes
 from collections import Counter
 
 import torch
+from torch import Tensor
+from torch._subclasses.fake_tensor import is_fake
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import nvcc
 from repro_torch.kernels.ref import mlstm_chunk_ref
@@ -67,7 +79,7 @@ def _check(q, k, v, log_f, i_gate) -> None:
     ts = (q, k, v, log_f, i_gate)
     if any(t.dtype != torch.float32 for t in ts):
         raise TypeError(f"mlstm_chunk takes float32 inputs, got {[t.dtype for t in ts]}")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda") and not is_fake(q):
         raise ValueError(f"mlstm_chunk: unsupported device {q.device}")
     if any(t.device != q.device for t in ts):
         raise ValueError("mlstm_chunk needs all inputs on one device")
@@ -87,6 +99,26 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"mlstm_chunk {what} launch failed: {msg} (cudaError {err})")
 
 
+def _forward_outputs(q: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """h like q, and what the backward needs besides the inputs and h."""
+    BH, S, dh = q.shape
+    nch = -(-S // CHUNK)
+    new = lambda *shape: q.new_empty(shape, dtype=torch.float32)  # noqa: E731
+    # C and n at the start of every chunk after the first
+    return torch.empty_like(q), {
+        "cum": new(BH, S), "alpha": new(BH, S), "u": new(BH, S), "beta": new(BH, nch),
+        "cst": new(BH, nch - 1, dh, dh), "nst": new(BH, nch - 1, dh), "nq": new(BH, S),
+        "den": new(BH, S)}
+
+
+def _check_backward(q, k, v, log_f, i_gate, h, g) -> None:
+    _check(q, k, v, log_f, i_gate)
+    for t in (h, g):
+        if t.shape != q.shape or t.dtype != torch.float32 or t.device != q.device \
+                or not t.is_contiguous():
+            raise ValueError("mlstm_backward takes h and g contiguous, fp32, like q")
+
+
 def _ptrs(*ts: torch.Tensor) -> list[int]:
     return [t.data_ptr() for t in ts]
 
@@ -101,11 +133,7 @@ def mlstm_forward(q, k, v, log_f, i_gate) -> tuple[torch.Tensor, dict]:
     BH, S, dh = q.shape
     nch = -(-S // CHUNK)
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=q.device)  # noqa: E731
-    h = torch.empty_like(q)
-    # C and n at the start of every chunk after the first
-    saved = {"cum": new(BH, S), "alpha": new(BH, S), "u": new(BH, S), "beta": new(BH, nch),
-             "cst": new(BH, nch - 1, dh, dh), "nst": new(BH, nch - 1, dh), "nq": new(BH, S),
-             "den": new(BH, S)}
+    h, saved = _forward_outputs(q)
     if BH == 0 or S == 0:
         return h, saved
     amat = new(BH, nch, CHUNK, CHUNK)
@@ -125,13 +153,9 @@ def mlstm_forward(q, k, v, log_f, i_gate) -> tuple[torch.Tensor, dict]:
 def mlstm_backward(q, k, v, log_f, i_gate, h, saved: dict, g):
     """(dq, dk, dv, d log_f, d i_gate) of ``sum(g * h)`` on the card, from
     ``h, saved = mlstm_forward(q, k, v, log_f, i_gate)``."""
-    _check(q, k, v, log_f, i_gate)
+    _check_backward(q, k, v, log_f, i_gate, h, g)
     if q.device.type != "cuda":
         raise ValueError("mlstm_backward runs the CUDA kernels")
-    for t in (h, g):
-        if t.shape != q.shape or t.dtype != torch.float32 or t.device != q.device \
-                or not t.is_contiguous():
-            raise ValueError("mlstm_backward takes h and g contiguous, fp32, like q")
     BH, S, dh = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dlf, dig = torch.empty_like(log_f), torch.empty_like(i_gate)
@@ -160,21 +184,105 @@ def mlstm_backward(q, k, v, log_f, i_gate, h, saved: dict, g):
     return dq, dk, dv, dlf, dig
 
 
-class MlstmChunk(torch.autograd.Function):
-    """q, k, v, log_f, i_gate -> h on the card; the backward is K5's seven
-    backward kernels."""
+@torch.library.custom_op("repro_torch::mlstm_chunk_fwd", mutates_args=(), device_types="cuda")
+def _forward_op(q: Tensor, k: Tensor, v: Tensor, log_f: Tensor, i_gate: Tensor
+                ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    h, saved = mlstm_forward(q, k, v, log_f, i_gate)
+    return (h, *(saved[n] for n in FWD_SAVED))
 
-    @staticmethod
-    def forward(ctx, q, k, v, log_f, i_gate):
-        h, saved = mlstm_forward(q, k, v, log_f, i_gate)
-        ctx.save_for_backward(q, k, v, log_f, i_gate, h, *(saved[n] for n in FWD_SAVED))
-        return h
 
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, log_f, i_gate, h, *rest = ctx.saved_tensors
-        return mlstm_backward(q, k, v, log_f, i_gate, h, dict(zip(FWD_SAVED, rest)),
-                              g.contiguous())
+@_forward_op.register_fake
+def _(q, k, v, log_f, i_gate):
+    _check(q, k, v, log_f, i_gate)
+    h, saved = _forward_outputs(q)
+    return (h, *(saved[n] for n in FWD_SAVED))
+
+
+@torch.library.custom_op("repro_torch::mlstm_chunk_bwd", mutates_args=(), device_types="cuda")
+def _backward_op(q: Tensor, k: Tensor, v: Tensor, log_f: Tensor, i_gate: Tensor, h: Tensor,
+                 cum: Tensor, alpha: Tensor, u: Tensor, beta: Tensor, cst: Tensor, nst: Tensor,
+                 nq: Tensor, den: Tensor, g: Tensor
+                 ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    saved = dict(zip(FWD_SAVED, (cum, alpha, u, beta, cst, nst, nq, den)))
+    return mlstm_backward(q, k, v, log_f, i_gate, h, saved, g)
+
+
+@_backward_op.register_fake
+def _(q, k, v, log_f, i_gate, h, *rest):
+    _check_backward(q, k, v, log_f, i_gate, h, rest[-1])
+    return (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
+            torch.empty_like(log_f), torch.empty_like(i_gate))
+
+
+def _setup_context(ctx, inputs, output):
+    h, *saved = output
+    ctx.mark_non_differentiable(*saved)
+    ctx.set_materialize_grads(False)
+    ctx.save_for_backward(*inputs, h, *saved)
+
+
+def _backward(ctx, g, *_):
+    return _backward_op(*ctx.saved_tensors, g.contiguous())
+
+
+_forward_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+def mlstm_work(BH: int, S: int, dh: int) -> tuple[float, float, float, float]:
+    """The fp32 operations and bytes K5's forward and backward need on these
+    shapes, in chunks of 256: products only where s <= t, no product with the
+    zero state of the first chunk, no state update after the last. Returns
+    (forward ops, forward bytes, backward ops, backward bytes)."""
+    lens = [min(CHUNK, S - c0) for c0 in range(0, S, CHUNK)]
+    tri = sum(L * (L + 1) // 2 for L in lens) * dh          # one causal (P, P, dh) product
+    mid = sum(L for L in lens[1:]) * dh * dh                # q C, or its transpose
+    end = sum(L for L in lens[:-1]) * dh * dh               # the state update
+    fwd_macs = 2 * tri + mid + end + 2 * S * dh             # scores, A v; n.q, n update
+    # backward: dA = g v^T, dS k, dS^T q, A^T g; C g (dq), dC v and k dC (dk,
+    # dv), the dC walk. The gate terms come from dA * A with A kept from the
+    # forward; the kernel's recompute of the scores is its own choice, not
+    # counted.
+    bwd_macs = 4 * tri + 2 * mid + 2 * end + 3 * S * dh
+    row = BH * S * dh * 4
+    return (2.0 * BH * fwd_macs, 4.0 * row + 8 * BH * S,
+            2.0 * BH * bwd_macs, 8.0 * row + 16 * BH * S)
+
+
+@register_flop_formula(torch.ops.repro_torch.mlstm_chunk_fwd)
+def _forward_flop_formula(q_shape, *args, **kwargs) -> int:
+    return int(mlstm_work(*q_shape)[0])
+
+
+@register_flop_formula(torch.ops.repro_torch.mlstm_chunk_bwd)
+def _backward_flop_formula(q_shape, *args, **kwargs) -> int:
+    return int(mlstm_work(*q_shape)[2])
+
+
+def forward_workspace_bytes(q: torch.Tensor, *args) -> int:
+    """The forward's scratch beside its outputs: the decay matrices
+    (BH, chunks, 256, 256) fp32."""
+    BH, S, _ = q.shape
+    return 4 * BH * -(-S // CHUNK) * CHUNK * CHUNK
+
+
+def backward_workspace_bytes(q: torch.Tensor, *args) -> int:
+    """The backward's scratch (``mlstm_backward``'s buffers besides its
+    outputs), fp32."""
+    BH, S, dh = q.shape
+    nch, ndt = -(-S // CHUNK), -(-dh // TILE)
+    elems = (BH * S                                          # r
+             + BH * (nch - 1) * (dh * dh + dh)               # dC, dn at chunk ends
+             + (ndt * ndt + ndt) * BH * nch                  # dbc, dbn
+             + 2 * BH * nch * CHUNK * CHUNK                  # amat, dsm
+             + 2 * (CHUNK // TILE) * BH * S                  # hrow, hcol
+             + 2 * ndt * BH * S)                             # dal, du
+    return 4 * elems
+
+
+# scratch a kernel allocates and frees inside its op, by op; a trace of
+# live bytes adds it at the op (launch/dryrun.py)
+WORKSPACE = {torch.ops.repro_torch.mlstm_chunk_fwd: forward_workspace_bytes,
+             torch.ops.repro_torch.mlstm_chunk_bwd: backward_workspace_bytes}
 
 
 def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_f: torch.Tensor,
@@ -184,4 +292,4 @@ def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_f: torch.
     _check(q, k, v, log_f, i_gate)
     if q.device.type == "cpu":
         return mlstm_chunk_ref(q, k, v, log_f, i_gate)
-    return MlstmChunk.apply(q, k, v, log_f, i_gate)
+    return _forward_op(q, k, v, log_f, i_gate)[0]

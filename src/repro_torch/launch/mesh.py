@@ -14,9 +14,14 @@ gloo for the CPU. :func:`init_client_group` takes, in this order:
    ``HashStore``.
 
 More ranks than one need a launcher; the error names it. Nothing falls
-back: a group that cannot be made raises. The production-mesh functions
-(``make_production_mesh``, ``data_axes``, ``make_host_mesh``) wait for
-the dry-run (ROADMAP).
+back: a group that cannot be made raises.
+
+The production mesh of the dry-run (``launch/dryrun.py``) is a plain
+description, axis names and sizes, that ``launch/specs.py`` reckons
+per-device bytes over; nothing is placed on it. ``make_production_mesh``
+lays N cards out as ``(data = N / m, model = m)`` with m = min(N, 8), one
+HGX node's NVLink domain for the model axis. The JAX package's TPU meshes
+(single pod 16x16, multi-pod 2x16x16) are not ported.
 
   torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \\
       --arch resnet-56 --exec sharded --devices 2 --device cpu
@@ -24,6 +29,7 @@ the dry-run (ROADMAP).
 from __future__ import annotations
 
 import os
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -31,6 +37,43 @@ import torch.distributed as dist
 from repro_torch import resolve_device
 
 CLIENT_AXIS = "clients"
+NODE_CARDS = 8          # one HGX node: the model axis's NVLink domain
+
+
+class Mesh(NamedTuple):
+    """A mesh as the dry-run reckons over it: axis names and sizes."""
+
+    axis_names: tuple[str, ...]
+    shape: tuple[int, ...]
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    def axis_size(self, name: str) -> int:
+        return dict(zip(self.axis_names, self.shape))[name]
+
+
+def make_production_mesh(devices: int = 256) -> Mesh:
+    """``(data = devices / m, model = m)``, m = min(devices, 8)."""
+    m = min(devices, NODE_CARDS)
+    if devices < 1 or devices % m:
+        raise ValueError(f"a production mesh takes 1-8 cards or a multiple of {NODE_CARDS}, "
+                         f"got {devices}")
+    return Mesh(("data", "model"), (devices // m, m))
+
+
+def data_axes(mesh: Mesh) -> tuple[str, ...]:
+    """Axes that carry batch parallelism."""
+    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+def make_host_mesh() -> Mesh:
+    """The one-card mesh, (data 1, model 1)."""
+    return Mesh(("data", "model"), (1, 1))
 
 
 def _backend(device: torch.device) -> str:

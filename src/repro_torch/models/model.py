@@ -70,8 +70,9 @@ def init(gen: torch.Generator | None, cfg, *, device="cpu") -> Params:
 
 def _project_frontend(params: Params, batch: dict) -> torch.Tensor:
     """The stubbed frontend's (C, B, P, d_front) embeddings through
-    ``front_proj``, in fp32."""
-    return client_mm(batch["frontend"].float(), params["front_proj"])
+    ``front_proj``, in fp32 (bf16 weights too, as the JAX package's type
+    promotion gives it)."""
+    return client_mm(batch["frontend"].float(), params["front_proj"].float())
 
 
 def _gather(params: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -143,7 +144,8 @@ def server_forward(server_params: Params, cfg, z) -> tuple[torch.Tensor, "torch.
     enc_out = None
     if cfg.family == "encdec":
         z, enc_out = z
-    x, aux = tfm.stack_apply(z, server_params["blocks"], cfg, enc_out=enc_out)
+    first = cfg.n_layers - tree_leaves(server_params["blocks"])[0].shape[1]  # the tail
+    x, aux = tfm.stack_apply(z, server_params["blocks"], cfg, enc_out=enc_out, first_layer=first)
     return lm_logits(server_params, cfg, x), aux
 
 
@@ -200,11 +202,14 @@ def cache_len_for(cfg, seq_len: int, *, long_context: bool) -> int:
     return seq_len
 
 
-def init_cache(cfg, batch_size: int, seq_len: int, *, device="cpu") -> Params:
+def init_cache(cfg, batch_size: int, seq_len: int, *, long_context: bool = False,
+               device="cpu") -> Params:
     """Empty caches of ``cfg.n_layers`` layers for ``batch_size`` sequences
-    of up to ``seq_len`` tokens; attention keeps ``cache_len_for`` slots,
-    an xLSTM layer the state of its cell (``tfm.is_slstm_layer``)."""
-    W = cache_len_for(cfg, seq_len, long_context=False)
+    of up to ``seq_len`` tokens; attention keeps ``cache_len_for`` slots
+    (with ``long_context``, the ``serve_window`` ring of the long-context
+    serve variant, as ``repro/models/model.py:167-172``), an xLSTM layer the
+    state of its cell (``tfm.is_slstm_layer``)."""
+    W = cache_len_for(cfg, seq_len, long_context=long_context)
     layers = [tfm.block_cache_init(cfg, batch_size, W, slstm=tfm.is_slstm_layer(cfg, i),
                                    device=device)
               for i in range(cfg.n_layers)]

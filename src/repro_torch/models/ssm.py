@@ -290,8 +290,10 @@ def mamba_apply(x: torch.Tensor, p: Params, cfg) -> torch.Tensor:
     u = client_mm(x.to(dt), p["w_in"].to(dt))
     xs, z = torch.chunk(u, 2, dim=-1)                                  # (C, B, S, di)
     xf = silu(_causal_conv(xs, p["conv"].to(dt))).float()
-    Bt, Ct = torch.chunk(client_mm(xf, p["w_bc"]), 2, dim=-1)         # (C, B, S, N)
-    pre = client_mm(xf, p["w_dt"])
+    # .float(): fp32 products over bf16 weights too (the dry-run's serving
+    # steps), as the JAX package's type promotion gives them
+    Bt, Ct = torch.chunk(client_mm(xf, p["w_bc"].float()), 2, dim=-1)  # (C, B, S, N)
+    pre = client_mm(xf, p["w_dt"].float())
     dt_t = softplus(pre + per_client(p["b_dt"], pre))                  # (C, B, S, di)
     A = -torch.exp(p["a_log"])                                         # (C, di, N)
     P = min(MAMBA_CHUNK, S)
@@ -325,9 +327,9 @@ def mamba_decode(x: torch.Tensor, p: Params, cfg, state: Params) -> tuple[torch.
     u = client_mm(x.to(dt)[:, :, 0], p["w_in"].to(dt))
     xs, z = torch.chunk(u, 2, dim=-1)                                  # (C, B, di)
     hist = torch.cat([state["conv"], xs[:, :, None].float()], dim=2)   # (C, B, k, di)
-    xc = silu(torch.einsum("cbkd,ckd->cbd", hist, p["conv"]))
-    Bt, Ct = torch.chunk(client_mm(xc, p["w_bc"]), 2, dim=-1)         # (C, B, N)
-    pre = client_mm(xc, p["w_dt"])
+    xc = silu(torch.einsum("cbkd,ckd->cbd", hist, p["conv"].float()))
+    Bt, Ct = torch.chunk(client_mm(xc, p["w_bc"].float()), 2, dim=-1)  # (C, B, N)
+    pre = client_mm(xc, p["w_dt"].float())
     dt_t = softplus(pre + per_client(p["b_dt"], pre))
     A = -torch.exp(p["a_log"])
     a = torch.exp(dt_t[..., None] * A[:, None])                        # (C, B, di, N)

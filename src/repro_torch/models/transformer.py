@@ -27,6 +27,7 @@ before the first step (``models/model.py::fill_cross_cache``).
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -96,8 +97,10 @@ def stack_init(gen, cfg, n_layers: int, *, kind: str | None = None,
     kind = kind or block_kind(cfg)
     stacked = block_init(gen, cfg, kind=kind, lead=(n_layers,), device=device)
     if kind == "ssm" and cfg.slstm_every:
-        stacked["is_slstm"] = torch.tensor([float(is_slstm_layer(cfg, i)) for i in range(n_layers)],
-                                           device=device)
+        # made on the host and moved, so that under a fake-tensor trace on
+        # the meta device it is a fake tensor too
+        stacked["is_slstm"] = torch.tensor(
+            [float(is_slstm_layer(cfg, i)) for i in range(n_layers)]).to(device)
     return stacked
 
 
@@ -154,13 +157,14 @@ def ssm_block_apply(x: torch.Tensor, bp: Params, cfg, slstm: bool) -> torch.Tens
 
 
 def stack_apply(x: torch.Tensor, stacked: Params, cfg, *, kind: str | None = None,
-                enc_out: torch.Tensor | None = None
+                enc_out: torch.Tensor | None = None, first_layer: int = 0
                 ) -> tuple[torch.Tensor, "torch.Tensor | float"]:
     """Run x through the stacked blocks (leaves (C, L, ...)) of ``kind``
     (the config's stack's by default; ``dec`` blocks attend to
-    ``enc_out``). Returns (x, moe_aux_loss): for MoE blocks the sum over
-    layers of each client's load-balance loss, (C,); 0.0 for the other
-    blocks, which have none."""
+    ``enc_out``); ``first_layer`` is the model's index of the stack's first
+    block (a server half's is the split layer). Returns (x, moe_aux_loss):
+    for MoE blocks the sum over layers of each client's load-balance loss,
+    (C,); 0.0 for the other blocks, which have none."""
     kind = kind or block_kind(cfg)
     if kind in ("dense", "moe", "hybrid", "enc", "dec"):
         aux = 0.0
@@ -176,21 +180,31 @@ def stack_apply(x: torch.Tensor, stacked: Params, cfg, *, kind: str | None = Non
                 x, layer_aux = moe_block_apply(x, bp, cfg)
                 aux = aux + layer_aux
         return x, aux
-    flags = slstm_flags(stacked)
+    flags = slstm_flags(stacked, cfg, first_layer)
     cells = {k: stacked[k] for k in ("mlstm", "slstm")}
     for layer, slstm in enumerate(flags):
         x = ssm_block_apply(x, tree_map(lambda t: t[:, layer], cells), cfg, slstm)
     return x, 0.0
 
 
-def slstm_flags(stacked: Params) -> list[bool]:
+def slstm_flags(stacked: Params, cfg, first_layer: int = 0) -> list[bool]:
     """Which layers of an xLSTM stack are sLSTM blocks: one host read of
     ``is_slstm`` per stack; every client holds the global flags (a leaf with
-    zero gradients, which Adam and FedAvg leave on its side of 0.5)."""
+    zero gradients, which Adam and FedAvg leave on its side of 0.5).
+
+    A trace on fake tensors (``launch/dryrun.py``) has no values to read:
+    there the flags are the config's rule (``is_slstm_layer``) from the
+    stack's ``first_layer``, as ``stack_init`` wrote them."""
     n_layers = stacked["mlstm"]["ln"].shape[1]
     if "is_slstm" not in stacked:
         return [False] * n_layers
-    per_client = (stacked["is_slstm"] > 0.5).cpu()
+    flags = stacked["is_slstm"]
+    if is_fake(flags):
+        if first_layer + n_layers > cfg.n_layers:
+            raise ValueError(f"a stack of {n_layers} layers from layer {first_layer} exceeds "
+                             f"the model's {cfg.n_layers}")
+        return [is_slstm_layer(cfg, first_layer + i) for i in range(n_layers)]
+    per_client = (flags > 0.5).cpu()
     if not bool((per_client == per_client[:1]).all()):
         raise ValueError("clients disagree on which layers are sLSTM blocks")
     return per_client[0].tolist()

@@ -31,3 +31,16 @@ def tree_unflatten(like: Any, leaves: list) -> Any:
     """A tree shaped like ``like`` holding ``leaves`` (in ``tree_leaves`` order)."""
     it = iter(leaves)
     return tree_map(lambda _: next(it), like)
+
+
+def tree_map_with_path(fn: Callable, tree: Any, path: tuple = ()) -> Any:
+    """``tree_map`` over one tree, ``fn(path, leaf)``: ``path`` holds the
+    dict keys and sequence indices from the root to the leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map_with_path(fn, v, path + (k,))
+                            for k, v in zip(tree._fields, tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, path + (i,)) for i, v in enumerate(tree))
+    return fn(path, tree)

@@ -11,6 +11,7 @@ package's (``repro/checkpoint/__init__.py``).
     the writer's own ``load`` gives, on a tree with NamedTuples and on a
     DTFL trainer's resume envelope (top-k residuals, pairing hosts).
 """
+import collections
 import os
 
 import jax
@@ -114,12 +115,20 @@ def test_bf16_leaf_rejected(tmp_path, leaf):
 
 
 def test_unmapped_namedtuple_tag_rejected(tmp_path):
-    """``repro.core.local_loss.DTFLState`` has no port class: a clear
-    error, and nothing of the JAX package is imported to resolve it."""
+    """A JAX-package NamedTuple tag with no port class gives a clear error,
+    and nothing of the JAX package is imported to resolve it. Every
+    NamedTuple of the JAX package now has a port class (the dry-run brought
+    ``repro.core.local_loss.DTFLState``), so the unmapped tag is a stand-in
+    class named into that module; ``DTFLState`` loads as the port's."""
     p = os.path.join(str(tmp_path), "ck.npz")
-    jckpt.save(p, {"s": DTFLState(*(np.zeros(1),) * 6)})
-    with pytest.raises(ValueError, match="repro_torch.core.local_loss.DTFLState"):
+    retired = collections.namedtuple("RetiredState", ["a"], module="repro.core.local_loss")
+    jckpt.save(p, {"s": retired(np.zeros(1))})
+    with pytest.raises(ValueError, match="repro_torch.core.local_loss.RetiredState"):
         ckpt.load(p)
+    jckpt.save(p, {"s": DTFLState(*(np.zeros(1),) * 6)})
+    loaded = ckpt.load(p)["s"]
+    assert type(loaded).__module__ == "repro_torch.core.local_loss"
+    assert type(loaded).__name__ == "DTFLState"
 
 
 # ---------------------------------------------------------------------------

@@ -50,7 +50,7 @@ from repro_torch.bridge import from_numpy_tree, to_numpy_tree
 from repro_torch.configs import get_config
 from repro_torch.core import tiering
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels.ref import attention_ref
+from repro_torch.kernels.ref import attention_bwd_ref, attention_ref
 from repro_torch.launch import serve
 from repro_torch.launch import train
 from repro_torch.models import layers
@@ -154,25 +154,32 @@ def test_plain_attention_at_head_dim_160_matches_pallas_kernel_and_jax(dtype, ca
 
 
 def test_wrapper_refuses_masks_across_lengths_and_backward_at_new_shapes():
-    """Sq != Sk takes neither causality nor a window; the backward takes
-    neither Sq != Sk nor hd above 128 (not yet ported), on the CPU as on
-    the card, and autograd through ``flash_attention`` reaches it."""
-    q, k = torch.zeros(2, 24, 4, 32), torch.zeros(2, 16, 2, 32)
+    """Sq != Sk takes neither causality nor a window; the backward does not
+    take hd above 128 (not yet ported), on the CPU as on the card, and
+    autograd through ``flash_attention`` reaches it. The backward at Sq !=
+    Sk runs (its plain version here; the square kernels over query chunks
+    on the card) and equals ``attention_bwd_ref`` on random inputs (which
+    ``tests/test_torch_kernels.py`` holds against fp64 autograd there)."""
+    g = torch.Generator().manual_seed(0)
+    q, k, v, do = (torch.randn(*s, generator=g)
+                   for s in ((2, 24, 4, 32), (2, 16, 2, 32), (2, 16, 2, 32), (2, 24, 4, 32)))
     for mask in (dict(causal=True), dict(causal=False, window=8)):
         with pytest.raises(ValueError, match="Sq 24 != Sk 16"):
-            fa.attn_forward(q, k, k, **mask)
-    o, lse = fa.attn_forward(q, k, k, causal=False)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        fa.attn_backward(q, k, k, o, lse, o, causal=False)
+            fa.attn_forward(q, k, v, **mask)
+    o, lse = fa.attn_forward(q, k, v, causal=False)
+    got = fa.attn_backward(q, k, v, o, lse, do, causal=False)
+    want = attention_bwd_ref(q, k, v, o, lse, do, causal=False)
+    assert all(a.abs().max() > 0 and torch.equal(a, b) for a, b in zip(got, want))
     q160 = torch.zeros(2, 8, 4, 160)
     o, lse = fa.attn_forward(q160, q160[:, :, :2].contiguous(), q160[:, :, :2].contiguous(),
                              causal=True)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         fa.attn_backward(q160, q160[:, :, :2].contiguous(), q160[:, :, :2].contiguous(), o,
                          lse, o, causal=True)
-    qa = q.clone().requires_grad_(True)
+    qa = q160.clone().requires_grad_(True)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        fa.flash_attention(qa, k, k, causal=False).sum().backward()
+        fa.flash_attention(qa, q160[:, :, :2].contiguous(), q160[:, :, :2].contiguous(),
+                           causal=True).sum().backward()
 
 
 # ---------------------------------------------------------------------------

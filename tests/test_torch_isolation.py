@@ -132,3 +132,31 @@ def test_transformer_cli_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch, 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(argv)
+
+
+def test_dry_run_traces_with_jax_and_repro_blocked():
+    """The dry-run's modules import and trace a step in a process where
+    importing ``jax`` or ``repro`` fails, and ``chip_smoke.py``, which runs
+    its steps on the card, names neither."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.launch import dryrun, mesh, specs, steps\n"
+        "from repro_torch.models import shardctx\n"
+        "from repro_torch.core import local_loss\n"
+        "rec = dryrun.run_one('smollm-360m', 'train_4k', cfg=get_config('smollm-360m').reduced(),\n"
+        "                     tier=1, save=False, verbose=False)\n"
+        "assert rec['flops_per_device'] > 0\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
+        "               for k, v in sys.modules.items() if v is not None)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={"PYTHONPATH": str(PKG.parent), "PATH": "/usr/bin:/bin"},
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
+    assert not pat.search((PKG.parent.parent / "chip_smoke.py").read_text())

@@ -325,22 +325,23 @@ def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take():
                            torch.zeros(1, 4, 2, 168))
     with pytest.raises(ValueError):
         fa.flash_attention(q, kv, kv, window=-1)
-    # Sq != Sk (cross-attention) without a mask only, and with no backward;
-    # nor a backward at head_dim 160
+    # Sq != Sk (cross-attention) without a mask only, both ways; no backward
+    # at head_dim 160
     kx = torch.zeros(2, 5, 2, 16)
     for mask in (dict(causal=True), dict(causal=False, window=3)):
         with pytest.raises(ValueError, match="Sq 8 != Sk 5"):
             fa.flash_attention(q, kx, kx, **mask)
     o, lse = fa.attn_forward(q, kx, kx, causal=False)
     assert o.shape == q.shape and lse.shape == (2, 4, 8)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        fa.attn_backward(q, kx, kx, o, lse, o, causal=False)
+    grads = fa.attn_backward(q, kx, kx, o, lse, o, causal=False)
+    assert [g.shape for g in grads] == [q.shape, kx.shape, kx.shape]
     q160, kv160 = torch.zeros(1, 4, 2, 160), torch.zeros(1, 4, 2, 160)
     o, lse = fa.attn_forward(q160, kv160, kv160, causal=True)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         fa.attn_backward(q160, kv160, kv160, o, lse, o, causal=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        fa.flash_attention(q.requires_grad_(True), kx, kx, causal=False).sum().backward()
+    qa = q.clone().requires_grad_(True)
+    fa.flash_attention(qa, kx, kx, causal=False).sum().backward()
+    assert qa.grad.shape == q.shape
 
 
 def test_fused_xent_wrapper_rejects_what_the_kernel_does_not_take():
@@ -429,18 +430,21 @@ def test_plain_attention_grads_equal_autograd():
     """The plain backward (FlashAttention-2's form from the saved lse) is
     the gradient of the plain forward: against autograd through a
     materialized fp64 softmax attention with grouped heads, causal and
-    windowed, ragged S."""
+    windowed, ragged S, and across lengths (Sq != Sk, no mask: the
+    encoder-decoder's cross-attention)."""
     g = torch.Generator().manual_seed(0)
-    for S, causal, window in ((37, True, 0), (37, True, 9), (20, False, 0), (20, False, 6)):
-        q = torch.randn(2, S, 6, 16, generator=g, dtype=torch.float64)
-        k = torch.randn(2, S, 2, 16, generator=g, dtype=torch.float64)
-        v = torch.randn(2, S, 2, 16, generator=g, dtype=torch.float64)
-        do = torch.randn(2, S, 6, 16, generator=g, dtype=torch.float64)
+    for Sq, Sk, causal, window in ((37, 37, True, 0), (37, 37, True, 9), (20, 20, False, 0),
+                                   (20, 20, False, 6), (24, 16, False, 0),
+                                   (10, 37, False, 0)):
+        q = torch.randn(2, Sq, 6, 16, generator=g, dtype=torch.float64)
+        k = torch.randn(2, Sk, 2, 16, generator=g, dtype=torch.float64)
+        v = torch.randn(2, Sk, 2, 16, generator=g, dtype=torch.float64)
+        do = torch.randn(2, Sq, 6, 16, generator=g, dtype=torch.float64)
         qa, ka, va = (t.clone().requires_grad_(True) for t in (q, k, v))
         kr, vr = (t.repeat_interleave(3, dim=2) for t in (ka, va))
         s = torch.einsum("nqhd,nkhd->nhqk", qa, kr) / 4.0
-        qpos, kpos = torch.arange(S)[:, None], torch.arange(S)[None, :]
-        vis = torch.ones(S, S, dtype=torch.bool)
+        qpos, kpos = torch.arange(Sq)[:, None], torch.arange(Sk)[None, :]
+        vis = torch.ones(Sq, Sk, dtype=torch.bool)
         if causal:
             vis &= qpos >= kpos
         if window:
@@ -454,6 +458,7 @@ def test_plain_attention_grads_equal_autograd():
         assert torch.allclose(o32.double(), o, atol=1e-5)
         got = attention_bwd_ref(q32, k32, v32, o32, lse, do32, causal=causal, window=window)
         for a, b in zip(got, grads):
+            assert a.shape == b.shape
             assert torch.allclose(a.double(), b, atol=1e-4, rtol=1e-4)
 
 
