@@ -21,8 +21,8 @@ Phases (any failure exits non-zero and prints no result line):
      the forward's blocks an SM must be kernels/dcor.py's) and per K4
      kernel: registers, shared memory and spills (ptxas) and HMMA
      instructions (``cuobjdump -sass``). Every bf16 K4 kernel must have
-     HMMA, and the hd-64 ones, the path's, and the hd-160 forward
-     (pixtral-12b's; ten bf16 kernels in all) must spill nothing. Per K3
+     HMMA, and the hd-64 ones, the path's, and the three hd-160 ones
+     (pixtral-12b's; twelve bf16 kernels in all) must spill nothing. Per K3
      kernel: registers, stack, spills and its main loop's static SASS
      instructions per element streamed; none may have a stack frame. The
      same for K5: every kernel with
@@ -70,13 +70,14 @@ Phases (any failure exits non-zero and prints no result line):
      bf16 at (8,192, 49,155) and (2,048, 49,155), granite's odd vocab,
      whose rows are not 16-byte aligned, (2,048, 64,000), (4,096, 102,400),
      (2,048, 202,048) and hymba's odd (4,096 and 2,048, 32,001);
-     whisper-base's encoder (4, 1,500, 8/8, 64) without a mask), K4's
-     every shape in bf16 and fp32; across lengths and at hd 160
-     (``ATTN_FORWARD_CASES``: whisper-base's cross-attention (4, 448 ->
-     1,500, 8/8, 64) and the dry-run train step's (2, 4,096 -> 1,500),
-     ragged ones) the forward and, across lengths, the backward too (the
-     square kernels over query chunks), pixtral-12b's heads (1, 2,048,
-     32/8, 160) forward only (the absolute tolerances of
+     whisper-base's encoder (4, 1,500, 8/8, 64) without a mask; hd 160 at
+     (2, 200, 8/2, 160)), K4's every shape in bf16 and fp32; across
+     lengths and at hd 160 (``ATTN_KEY_CASES``: whisper-base's
+     cross-attention (4, 448 -> 1,500, 8/8, 64) and the dry-run train
+     step's (2, 4,096 -> 1,500), ragged ones, (2, 100 -> 37, 4/1, 160),
+     pixtral-12b's heads (1, 2,048, 32/8, 160) and hd 150) forward and
+     backward (across lengths the square kernels over query chunks; the
+     absolute tolerances of
      tests/test_torch_kernels.py: K4 fp32 2e-5 forward and 1e-4 backward,
      bf16 rtol 2e-2 with atol 1e-2; K3 loss 2e-4, gradient rtol 1e-5 fp32
      and 1e-2 bf16); K4's backward and both K3 kernels must be
@@ -106,7 +107,8 @@ Phases (any failure exits non-zero and prints no result line):
      two rounds of the transformer run (device busy share, K3's and K4's
      shares, the top kernels), printed only; and the new families' rows
      (``NEW_K4_TIMED``: whisper-base's encoder both ways, its
-     cross-attention and pixtral-12b's heads forward, bf16 and fp32).
+     cross-attention forward, pixtral-12b's heads both ways, bf16 and
+     fp32).
  12. K5 (the mLSTM chunk kernels), forward and backward, against the plain
      chunk form and autograd through it on the card, at the xLSTM path's
      shape (48, 512, 512), the reduced model's (24, 320, 64) and ragged
@@ -209,6 +211,16 @@ Phases (any failure exits non-zero and prints no result line):
      15/5, 64), and K3 at (B x 4,096, 49,152), against their plain
      versions taken a sequence (and 2,048 queries) at a time. Their timed
      rows come after phase 11's (plain versions by events alone).
+ 23c. pixtral-12b's train step: published widths (d_model 5,120, 32/8
+     heads at hd 160, d_ff 14,336, vocab 131,072, the 1,024-token image
+     frontend), train_4k's 4,096 tokens; the depth and the batch cut to
+     the most the one-card reckoning keeps under ``PIXTRAL_GIB`` (68): 3 of
+     40 layers at batch 4 on the H100. The full train step
+     (``build_full_train``): the DTFL step's aux head adds 671 M
+     parameters, and it reckons 77.6 GiB already at 2 layers, printed
+     beside the cut. Driven as 23b's steps; K4's backward must launch at
+     (B, 4,096, 32/8, 160) causal bf16, and is held there against the plain
+     versions a sequence at a time; timed after 23b's rows.
 The LLM configs (after phase 14; ``LLM_RUNS``, ``LLM_ARCHS``). The
 configs keep their published widths; the depth and the client count are
 cut until one card holds the run, by a reckoning from the shapes on the
@@ -277,8 +289,8 @@ printed before each run beside its measured peak:
      for xLSTM and MoE), an MoE's tokens routed to other
      experts by the two left out and counted (at most
      ``SERVE_MAX_FLIPPED``); each K4 shape the phase launched is held
-     against its plain version (forward only at Sq != Sk and hd 160) and
-     its launches are counted by shape. Then pixtral-12b's forward over
+     against its plain versions, forward and backward, and its launches
+     are counted by shape. Then pixtral-12b's forward over
      2,048 tokens with a seeded 1,024-patch image in bf16: logits finite,
      every text position's different from the dense forward's, the peak
      allocated against ``_pixtral_reckoning``, K4 at hd 160 held.
@@ -587,8 +599,9 @@ def k4_build_report() -> None:
     """K4's kernels as built: registers, shared memory, spills (the ptxas
     report) and HMMA instructions (the SASS). Fails unless every bf16
     kernel (``flash_mma_*``) runs its products on the tensor cores, and the
-    hd-64 bf16 kernels, the path's, and the hd-160 forward (pixtral-12b's,
-    the only hd-160 kernel) spill nothing."""
+    hd-64 bf16 kernels, the path's, and the three hd-160 ones
+    (pixtral-12b's; the dK/dV kernel there is ``flash_mma_bwd_dkdv<160, 2>``)
+    spill nothing."""
     import ctypes
     import re
 
@@ -620,9 +633,9 @@ def k4_build_report() -> None:
         if bf16 and hd in (64, 160) and (info["spill_stores"] or info["spill_loads"]):
             fail(f"{name}<{hd}> spills registers")
         seen += bf16
-    if seen != 10:
-        fail(f"expected 10 bf16 K4 kernels (3 kernels x hd 32/64/128, the forward at hd 160) "
-             f"in the build log, found {seen}")
+    if seen != 12:
+        fail(f"expected 12 bf16 K4 kernels (3 kernels x hd 32/64/128/160) in the build log, "
+             f"found {seen}")
 
 
 # K5's kernels; all but prep, bprep and gates run split-TF32 products
@@ -2071,7 +2084,7 @@ def phase_k1_device_time(entry: dict) -> None:
 
 # K4 cases: (N, S, H, KV, hd, causal, window), each in bf16 and fp32; the
 # first is the path's (16 sequences of 512 tokens, 15 query heads over 5 KV
-# heads, hd 64); the first ten are the rows of tests/test_torch_kernels.py
+# heads, hd 64); the first eleven are rows of tests/test_torch_kernels.py
 ATTN_CASES = [
     ("path", 16, 512, 15, 5, 64, True, 0),
     ("window 128", 4, 512, 15, 5, 64, True, 128),
@@ -2083,6 +2096,8 @@ ATTN_CASES = [
     ("hd 128", 2, 150, 4, 1, 128, True, 0),
     ("hd 40", 2, 70, 3, 3, 40, True, 0),
     ("hd 20, element-wise staging", 2, 90, 4, 2, 20, True, 0),
+    # pixtral-12b's head dim: the dK/dV kernel's two column halves
+    ("hd 160", 2, 200, 8, 2, 160, True, 0),
     # the full-width heads of the LLM configs, 8 sequences of 512 tokens
     ("granite-3-2b heads", 8, 512, 32, 8, 64, True, 0),
     ("yi-6b heads", 8, 512, 32, 4, 128, True, 0),
@@ -2098,13 +2113,13 @@ ATTN_CASES = [
 ]
 ATTN_DTYPES = ("bfloat16", "float32")
 # K4 cases across lengths or at hd 160: (label, N, Sq, Sk, H, KV, hd, causal,
-# window), each in bf16 and fp32; the backward too where it takes the
-# shape (Sq != Sk at hd <= 128: the square kernels over query chunks).
-# whisper-base's cross-attention (448 decoder positions, Whisper's
-# n_text_ctx, over 1,500 frames; and the dry-run's train step, 4,096 tokens
-# over them), ragged ones, and pixtral-12b's heads at hd 160 (forward only):
-# one 1,024-patch image followed by 1,024 text tokens
-ATTN_FORWARD_CASES = [
+# window), each in bf16 and fp32, forward and backward (Sq != Sk: the
+# square kernels over query chunks). whisper-base's cross-attention (448
+# decoder positions, Whisper's n_text_ctx, over 1,500 frames; and the
+# dry-run's train step, 4,096 tokens over them), ragged ones, and
+# pixtral-12b's heads at hd 160: one 1,024-patch image followed by 1,024
+# text tokens; hd 150 runs the hd-160 kernels with element-wise staging
+ATTN_KEY_CASES = [
     ("whisper-base cross-attention", 4, 448, 1500, 8, 8, 64, False, 0),
     ("whisper-base dry-run train cross-attention", 2, 4096, 1500, 8, 8, 64, False, 0),
     ("cross-attention, ragged, G = 2", 3, 70, 130, 4, 2, 64, False, 0),
@@ -2120,8 +2135,8 @@ NEW_K4_TIMED = [
     ("whisper-base encoder", 4, 1500, 1500, 8, 8, 64, False, "float32", True),
     ("whisper-base cross-attention", 4, 448, 1500, 8, 8, 64, False, "bfloat16", False),
     ("whisper-base cross-attention", 4, 448, 1500, 8, 8, 64, False, "float32", False),
-    ("pixtral-12b heads", 1, 2048, 2048, 32, 8, 160, True, "bfloat16", False),
-    ("pixtral-12b heads", 1, 2048, 2048, 32, 8, 160, True, "float32", False),
+    ("pixtral-12b heads", 1, 2048, 2048, 32, 8, 160, True, "bfloat16", True),
+    ("pixtral-12b heads", 1, 2048, 2048, 32, 8, 160, True, "float32", True),
 ]
 # K3's timed rows (T, V, dtype): the path's heads (phase 11), then
 # granite's odd vocab and deepseek's, the one-client launches of the MoE
@@ -2287,9 +2302,8 @@ def _check_k3(label: str, T: int, V: int, dtype, g) -> tuple[float, float]:
 def _check_k4_forward(label: str, N: int, Sq: int, Sk: int, H: int, KV: int, hd: int,
                       causal: bool, window: int, dtype, g) -> tuple[float, float]:
     """K4's forward at one shape and dtype against its plain version (the
-    tolerances of ``_check_k4``): hd above 128, where no backward kernel
-    takes the shape yet, and the forward of ``_check_k4_across``. Returns
-    (max |diff|, 0.0)."""
+    tolerances of ``_check_k4``), the forward of ``_check_k4_across``.
+    Returns (max |diff|, 0.0)."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -2347,14 +2361,9 @@ def _check_k4_across(label: str, N: int, Sq: int, Sk: int, H: int, KV: int, hd: 
 
 
 def _check_k4_key(label: str, key: tuple, g) -> tuple[float, float]:
-    """K4 at a ``SHAPES`` key (N, Sq, Sk, H, KV, hd, causal, window, dtype):
-    forward and backward where the backward takes the shape, else the
-    forward alone."""
-    from repro_torch.kernels import flash_attention as fa
-
+    """K4 at a ``SHAPES`` key (N, Sq, Sk, H, KV, hd, causal, window, dtype),
+    forward and backward."""
     N, Sq, Sk, H, KV, hd, causal, window, dtype = key
-    if hd > fa.MAX_BWD_HEAD_DIM:
-        return _check_k4_forward(label, *key, g)
     if Sq == Sk:
         return _check_k4(label, N, Sq, H, KV, hd, causal, window, dtype, g)
     return _check_k4_across(label, N, Sq, Sk, H, KV, hd, dtype, g)
@@ -2399,7 +2408,7 @@ def phase_k3_k4() -> dict:
            "fused_xent_forward": 0.0, "fused_xent_backward": 0.0}
     for (label, *shape), dt in product(ATTN_CASES, ATTN_DTYPES):
         _merge_err(err, "flash_attention", *_check_k4(label, *shape, getattr(torch, dt), g))
-    for (label, *shape), dt in product(ATTN_FORWARD_CASES, ATTN_DTYPES):
+    for (label, *shape), dt in product(ATTN_KEY_CASES, ATTN_DTYPES):
         _merge_err(err, "flash_attention", *_check_k4_key(label, (*shape, getattr(torch, dt)), g))
     for label, T, V, dt in XENT_CASES:
         _merge_err(err, "fused_xent", *_check_k3(label, T, V, getattr(torch, dt), g))
@@ -2491,11 +2500,11 @@ def _k4_times(N: int, S: int, H: int, KV: int, hd: int, g, window: int = 0,
     called by the port; a window goes to it as an explicit boolean mask;
     the backward yardstick is its forward and autograd's backward, both
     captured), beside the bound, which counts the (query, key) pairs the
-    mask keeps. Without ``backward`` (shapes no backward kernel takes) the
-    forward alone. ``plain_fwd`` and ``plain_bwd`` (called as
-    ``attention_ref`` and ``attention_bwd_ref``) stand for the plain
-    versions where their whole score matrices would not fit; with ``big``
-    the plain versions are timed as ``_plain_times`` says."""
+    mask keeps. Without ``backward`` the forward alone. ``plain_fwd`` and
+    ``plain_bwd`` (called as ``attention_ref`` and ``attention_bwd_ref``)
+    stand for the plain versions where their whole score matrices would
+    not fit; with ``big`` the plain versions are timed as ``_plain_times``
+    says."""
     import torch
     import torch.nn.functional as F
 
@@ -3147,9 +3156,8 @@ def _record_shapes() -> None:
 def _check_launched(label: str) -> dict:
     """Every shape at which K2, K3, K4 and K5 launched since their
     ``SHAPES`` were cleared, held against the plain versions as phases K2,
-    K3/K4 and K5 hold their cases (K4 forward only where no backward
-    kernel takes the shape). Returns the max |diff| of each kernel,
-    forward and backward."""
+    K3/K4 and K5 hold their cases (K4 forward and backward). Returns the
+    max |diff| of each kernel, forward and backward."""
     import torch
 
     from repro_torch.kernels import dcor
@@ -3709,7 +3717,7 @@ def phase_pixtral_image() -> dict:
     (no image). The logits must be finite, and at every text position
     (1,024 on) differ from the dense forward's: the image reaches the text.
     Prints the peak allocated against ``_pixtral_reckoning``; every K4 shape
-    launched (hd 160, forward only) is held against its plain version and
+    launched (hd 160) is held against its plain versions both ways and
     joins ``SHAPE_LAUNCHES``."""
     import gc
 
@@ -3896,29 +3904,100 @@ def _step_counts() -> dict:
     return {"K3": dict(fx.LAUNCHES), "K4": dict(fa.LAUNCHES)}
 
 
-def phase_dryrun_steps() -> dict:
-    """SmolLM-360M's four dry-run steps at full width and depth, each built
-    by ``launch/steps.py`` at its cut batch (``DRYRUN_STEPS``): the fake
-    trace's reckoning at one card (``launch/dryrun.py::trace_step``, fake
-    CUDA tensors), then the same step on real tensors: its peak allocated
-    against the reckoned peak, FlopCounterMode's count against the fake
-    trace's (they must be equal), its device time (CUDA events, one call
-    after two) and achieved share of 989 TFLOP/s, printed. The fake traces
-    move no launch count; the real train and prefill steps must launch K3
-    and K4 (train) or K4 (prefill). Then K4 at the train step's (B, 4,096,
-    15/5, 64) forward and backward, K4's forward at (1, 32,768, 15/5, 64)
-    and K3 at the train step's rows are held against their plain versions.
-    Returns the K3 and K4 errors and the shapes to time."""
-    import dataclasses
+def _drive_step(name: str, cfg, cut, mesh, builder) -> dict:
+    """One dry-run step built by ``builder`` at ``cut`` on one card: the
+    fake trace's reckoning (``launch/dryrun.py::trace_step``, fake CUDA
+    tensors; it must move no launch count), then the same step on real
+    tensors: its peak allocated against the reckoned peak, FlopCounterMode's
+    count against the fake trace's (they must be equal), finite outputs,
+    the launches (train: K3 and K4 both ways; prefill: K4's forward) and
+    the device time (CUDA events, one call after two) with its share of 989
+    TFLOP/s, printed. The real run's launches by shape join
+    ``SHAPE_LAUNCHES``. Returns the real run's K4 backward launches by
+    shape."""
     import gc
 
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
-    from repro_torch.configs import INPUT_SHAPES, get_config
-    from repro_torch.launch import dryrun, steps
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import dryrun
     from repro_torch.tree import tree_leaves
+
+    counts0 = _step_counts()
+    t0 = time.perf_counter()
+    fake = dryrun.trace_step(builder(cfg, cut, mesh), mesh)
+    trace_s = time.perf_counter() - t0
+    if _step_counts() != counts0:
+        fail(f"dry-run {name}: the fake trace moved the launch counts")
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    built = builder(cfg, cut, mesh, device="cuda")
+    if cut.kind == "decode":
+        built["args"][2]["pos"].fill_(cut.seq_len - 1)   # a full cache (the ring's wrap)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _clear_shapes()
+    out = built["fn"](*built["args"])
+    torch.cuda.synchronize()
+    _record_shapes()
+    backward_shapes = dict(fa.BACKWARD_SHAPES)
+    peak = torch.cuda.max_memory_allocated() - before
+    launched = {k: {d: _step_counts()[k][d] - counts0[k][d] for d in counts0[k]}
+                for k in counts0}
+    # the decode's cache (43 GB at 32 sequences) is written in place: its logits
+    if not all(torch.isfinite(t).all() for t in tree_leaves(
+            out[0] if cut.kind == "decode" else out)
+               if torch.is_tensor(t) and t.is_floating_point()):
+        fail(f"dry-run {name}: the step's outputs are not finite")
+    del out
+    need = {"train": [(k, d) for k in ("K3", "K4") for d in ("forward", "backward")],
+            "prefill": [("K4", "forward")], "decode": []}[cut.kind]
+    if any(launched[k][d] <= 0 for k, d in need):
+        fail(f"dry-run {name}: the step launched {launched}")
+    with FlopCounterMode(display=False) as counter:
+        out = built["fn"](*built["args"])
+    del out
+    if counter.get_total_flops() != fake["flops"]:
+        fail(f"dry-run {name}: FlopCounterMode counts {counter.get_total_flops()} on the "
+             f"card, {fake['flops']} on the fake trace")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = built["fn"](*built["args"])
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    del out, built
+    _clear_shapes()
+    gap = peak / fake["peak_bytes"] - 1
+    print(f"[dryrun] {name} (batch {cut.global_batch} x {cut.seq_len}): peak allocated "
+          f"{peak / 2**30:.3f} GiB, reckoned {fake['peak_bytes'] / 2**30:.3f} GiB (arguments "
+          f"{fake['held_bytes'] / 2**30:.3f}; gap {100 * gap:+.1f}%); FLOPs "
+          f"{fake['flops']:.6g} counted on the card and in the fake trace "
+          f"(traced in {trace_s:.1f} s); device time {ms:.3f} ms, "
+          f"{100 * fake['flops'] / (ms * 1e-3) / BF16_OPS_PER_S:.2f}% of 989 TFLOP/s; "
+          f"launches K3 {launched['K3']}, K4 {launched['K4']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return backward_shapes
+
+
+def phase_dryrun_steps() -> dict:
+    """SmolLM-360M's four dry-run steps at full width and depth, each built
+    by ``launch/steps.py`` at its cut batch (``DRYRUN_STEPS``) and driven
+    by ``_drive_step``. Then K4 at the train step's (B, 4,096, 15/5, 64)
+    forward and backward, K4's forward at (1, 32,768, 15/5, 64) and K3 at
+    the train step's rows are held against their plain versions. Returns
+    the K3 and K4 errors and the shapes to time."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
 
     cfg, mesh = get_config(DRYRUN_ARCH), make_host_mesh()
     err = {f"{k}_{d}": 0.0 for k in ("flash_attention", "fused_xent")
@@ -3932,63 +4011,7 @@ def phase_dryrun_steps() -> dict:
         batch = batch or _dryrun_batch(cfg, shape, mesh)
         batches[name] = batch
         cut = dataclasses.replace(shape, global_batch=batch)
-        builder = steps.builder_for(cut)
-        counts0 = _step_counts()
-        t0 = time.perf_counter()
-        fake = dryrun.trace_step(builder(cfg, cut, mesh), mesh)
-        trace_s = time.perf_counter() - t0
-        if _step_counts() != counts0:
-            fail(f"dry-run {name}: the fake trace moved the launch counts")
-        gc.collect()
-        torch.cuda.empty_cache()
-        before = torch.cuda.memory_allocated()
-        built = builder(cfg, cut, mesh, device="cuda")
-        if shape.kind == "decode":
-            built["args"][2]["pos"].fill_(shape.seq_len - 1)   # a full cache (the ring's wrap)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _clear_shapes()
-        out = built["fn"](*built["args"])
-        torch.cuda.synchronize()
-        _record_shapes()
-        peak = torch.cuda.max_memory_allocated() - before
-        launched = {k: {d: _step_counts()[k][d] - counts0[k][d] for d in counts0[k]}
-                    for k in counts0}
-        # the decode's cache (43 GB at 32 sequences) is written in place: its logits
-        if not all(torch.isfinite(t).all() for t in tree_leaves(
-                out[0] if shape.kind == "decode" else out)
-                   if torch.is_tensor(t) and t.is_floating_point()):
-            fail(f"dry-run {name}: the step's outputs are not finite")
-        del out
-        need = {"train": [(k, d) for k in ("K3", "K4") for d in ("forward", "backward")],
-                "prefill": [("K4", "forward")], "decode": []}[shape.kind]
-        if any(launched[k][d] <= 0 for k, d in need):
-            fail(f"dry-run {name}: the step launched {launched}")
-        with FlopCounterMode(display=False) as counter:
-            out = built["fn"](*built["args"])
-        del out
-        if counter.get_total_flops() != fake["flops"]:
-            fail(f"dry-run {name}: FlopCounterMode counts {counter.get_total_flops()} on the "
-                 f"card, {fake['flops']} on the fake trace")
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        out = built["fn"](*built["args"])
-        end.record()
-        torch.cuda.synchronize()
-        ms = start.elapsed_time(end)
-        del out, built
-        _clear_shapes()
-        gap = peak / fake["peak_bytes"] - 1
-        print(f"[dryrun] {name} (batch {batch} x {shape.seq_len}): peak allocated "
-              f"{peak / 2**30:.3f} GiB, reckoned {fake['peak_bytes'] / 2**30:.3f} GiB (arguments "
-              f"{fake['held_bytes'] / 2**30:.3f}; gap {100 * gap:+.1f}%); FLOPs "
-              f"{fake['flops']:.6g} counted on the card and in the fake trace "
-              f"(traced in {trace_s:.1f} s); device time {ms:.3f} ms, "
-              f"{100 * fake['flops'] / (ms * 1e-3) / BF16_OPS_PER_S:.2f}% of 989 TFLOP/s; "
-              f"launches K3 {launched['K3']}, K4 {launched['K4']}")
-    gc.collect()
-    torch.cuda.empty_cache()
+        _drive_step(name, cfg, cut, mesh, steps.builder_for(cut))
     g = torch.Generator(device="cuda").manual_seed(12)
     B = batches["train_4k"]
     _merge_err(err, "flash_attention", *_check_k4_by_parts(
@@ -4002,30 +4025,122 @@ def phase_dryrun_steps() -> dict:
     return {"err": err, "train_batch": B}
 
 
-def phase_dryrun_times(train_batch: int, err: dict) -> list[dict]:
+# pixtral-12b's train step at train_4k on one card: published widths (hd
+# 160), the depth and the batch cut until the one-card reckoning is under
+# PIXTRAL_GIB. Its embed, lm_head and (DTFL) aux head are 671 M parameters
+# each, and a functional Adam step holds 28 B a parameter (weights, m and v
+# old and new, the gradients); the DTFL step reckons 77.6 GiB already at 2
+# layers (one each side of the tier-4 split), so the phase drives the full
+# train step (``launch/steps.py::build_full_train``), which has no aux head
+PIXTRAL_ARCH = "pixtral-12b"
+PIXTRAL_GIB = 68.0
+
+
+def _pixtral_cut(cfg, shape, mesh) -> tuple:
+    """(layers, batch) of pixtral-12b's full train step at ``shape``: the
+    most layers whose batch-1 reckoning is under PIXTRAL_GIB, then the
+    largest power-of-two batch under it; each traced on fake tensors. Also
+    prints the DTFL step's reckoning at 2 layers and batch 1."""
+    import dataclasses
+
+    from repro_torch.launch import dryrun, steps
+
+    def peak(layers: int, batch: int, builder=steps.build_full_train) -> float:
+        cut = dataclasses.replace(shape, global_batch=batch)
+        built = builder(cfg.replace(n_layers=layers), cut, mesh)
+        return dryrun.trace_step(built, mesh)["peak_bytes"] / 2**30
+
+    dtfl = peak(2, 1, steps.build_dtfl_train)
+    layers, by_layers = 1, {}
+    while layers < cfg.n_layers:
+        by_layers[layers + 1] = peak(layers + 1, 1)
+        if by_layers[layers + 1] > PIXTRAL_GIB:
+            break
+        layers += 1
+    if layers < 2:
+        fail(f"{PIXTRAL_ARCH}: the full train step does not fit {PIXTRAL_GIB:g} GiB at 2 layers")
+    batch, by_batch = 1, {}
+    while True:
+        by_batch[2 * batch] = peak(layers, 2 * batch)
+        if by_batch[2 * batch] > PIXTRAL_GIB:
+            break
+        batch *= 2
+    print(f"[pixtral-train] reckoned one-card peaks (GiB) at {shape.seq_len} tokens: the DTFL "
+          f"tier-{steps.DEFAULT_TIER} step at 2 layers, batch 1: {dtfl:.3f} (over "
+          f"{PIXTRAL_GIB:g}: not run); the full train step at batch 1, by layers: "
+          + ", ".join(f"{n}: {v:.3f}" for n, v in by_layers.items())
+          + f"; at {layers} layers, by batch: "
+          + ", ".join(f"{n}: {v:.3f}" for n, v in by_batch.items())
+          + f"; so {layers} of {cfg.n_layers} layers, batch {batch}")
+    return layers, batch
+
+
+def phase_pixtral_train() -> dict:
+    """pixtral-12b's full train step (``launch/steps.py::build_full_train``)
+    at full width: d_model 5,120, 32 query heads over 8 at hd 160, d_ff
+    14,336, vocab 131,072, the 1,024-token image frontend, train_4k's 4,096
+    tokens, bf16 compute over fp32 weights and Adam; the layers and the
+    batch cut by ``_pixtral_cut``. Driven by ``_drive_step``; K4's backward
+    must launch at the step's (B, 4,096, 32/8, 160) causal bf16. Then K4 at
+    that shape both ways against its plain versions a sequence at a time.
+    Returns the K4 errors and the shape to time."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg, mesh = get_config(PIXTRAL_ARCH), make_host_mesh()
+    shape = INPUT_SHAPES["train_4k"]
+    layers, batch = _pixtral_cut(cfg, shape, mesh)
+    cut_cfg = cfg.replace(n_layers=layers)
+    cut = dataclasses.replace(shape, global_batch=batch)
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    print(f"[pixtral-train] {PIXTRAL_ARCH}: {layers} of {cfg.n_layers} layers (cut), d_model "
+          f"{cfg.d_model}, {H}/{KV} heads at hd {hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, a "
+          f"{cfg.n_frontend_tokens}-token frontend of width {cfg.d_frontend}; batch {batch} "
+          f"(cut) x {shape.seq_len} tokens; the full train step")
+    backward_shapes = _drive_step(f"{PIXTRAL_ARCH} train_4k full", cut_cfg, cut, mesh,
+                                  steps.build_full_train)
+    key = (batch, shape.seq_len, shape.seq_len, H, KV, hd, True, 0, torch.bfloat16)
+    if backward_shapes.get(key, 0) <= 0:
+        fail(f"{PIXTRAL_ARCH} train step: K4's backward did not launch at {key}: "
+             f"{backward_shapes}")
+    g = torch.Generator(device="cuda").manual_seed(14)
+    err = {"flash_attention_forward": 0.0, "flash_attention_backward": 0.0}
+    _merge_err(err, "flash_attention", *_check_k4_by_parts(
+        f"{PIXTRAL_ARCH} train_4k", batch, shape.seq_len, H, KV, hd, g, True))
+    return {"err": err, "batch": batch}
+
+
+def phase_dryrun_times(train_batch: int, pixtral_batch: int, err: dict) -> list[dict]:
     """K4 and K3 at the dry-run steps' new shapes, timed as phase 11 times
     the path's (``_k4_times``, ``_k3_times``): K4 at (B, 4,096, 15/5, 64)
     both ways, K4's forward at (1, 32,768, 15/5, 64) (its plain version
     in K4_PLAIN_BLOCK query blocks: the whole score matrix would take 64
-    GB), K3 at (B x 4,096, 49,152) bf16; their launches are the dry-run
-    steps' at exactly these shapes. The plain versions' intermediates take
-    tens of GB here: they are timed by events alone (``_plain_times``)."""
+    GB), K4 at pixtral-12b's train step's (B, 4,096, 32/8, 160) both ways,
+    K3 at (B x 4,096, 49,152) bf16; their launches are the dry-run and
+    pixtral steps' at exactly these shapes. The plain versions'
+    intermediates take tens of GB here: they are timed by events alone
+    (``_plain_times``)."""
     import gc
 
     import torch
 
     from repro_torch.configs import get_config
-
-    cfg = get_config(DRYRUN_ARCH)
-    H, KV, hd, V = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.padded_vocab
-    g = torch.Generator(device="cuda").manual_seed(13)
-    entries = []
     from repro_torch.kernels.ref import attention_bwd_ref, attention_ref
 
-    for N, S, backward, plain_fwd, plain_bwd in (
-            (train_batch, 4_096, True, _per_sequence(attention_ref),
-             _per_sequence(attention_bwd_ref)),
-            (1, 32_768, False, _attention_blocked_ref, None)):
+    cfg, pixtral = get_config(DRYRUN_ARCH), get_config(PIXTRAL_ARCH)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    entries = []
+    per_sequence = (_per_sequence(attention_ref), _per_sequence(attention_bwd_ref))
+    for c, label, N, S, backward, (plain_fwd, plain_bwd) in (
+            (cfg, "dry-run", train_batch, 4_096, True, per_sequence),
+            (cfg, "dry-run", 1, 32_768, False, (_attention_blocked_ref, None)),
+            (pixtral, f"{PIXTRAL_ARCH} train step", pixtral_batch, 4_096, True, per_sequence)):
+        H, KV, hd = c.n_heads, c.n_kv_heads, c.resolved_head_dim
         times = _k4_times(N, S, H, KV, hd, g, backward=backward, plain_fwd=plain_fwd,
                           plain_bwd=plain_bwd, big=True)
         gc.collect()
@@ -4033,9 +4148,9 @@ def phase_dryrun_times(train_batch: int, err: dict) -> list[dict]:
         shape = f"({N}, {S}, {H}/{KV}, {hd}) bfloat16 causal"
         _print_times("flash_attention", shape, times)
         entries += _entries("flash_attention", times, "flash_attention.cu",
-                            "flash_attention.py:75", err, f" at dry-run {shape}",
+                            "flash_attention.py:75", err, f" at {label} {shape}",
                             (N, S, S, H, KV, hd, True, 0, torch.bfloat16))
-    T = train_batch * 4_096
+    T, V = train_batch * 4_096, cfg.padded_vocab
     times = _k3_times(T, V, torch.bfloat16, g, big=True)
     _print_times("fused_xent", f"({T}, {V}) bfloat16", times)
     entries += _entries("fused_xent", times, "fused_xent.cu", "fused_xent.py:62", err,
@@ -4170,6 +4285,11 @@ def main() -> None:
     dry = _phase("dry-run steps", 72, phase_dryrun_steps)
     for name, e in dry["err"].items():
         k34_err[name] = max(k34_err[name], e)
+    # pixtral-12b's train step at full width (hd 160): its reckoned peak,
+    # under PIXTRAL_GIB, plus room
+    pix = _phase("pixtral-12b train step", 70, phase_pixtral_train)
+    for name, e in pix["err"].items():
+        k34_err[name] = max(k34_err[name], e)
     entry["launches"] = k1_launches
     _phase("K1 device time", 1, phase_k1_device_time, entry)
     k2_fwd, k2_bwd = _phase("K2 times", 1, phase_k2_times, *k2_err)
@@ -4177,7 +4297,8 @@ def main() -> None:
     for name, err in K3_LAUNCHED_ERR.items():
         k34_err[name] = max(k34_err[name], err)
     k34 = _phase("K3/K4 times", 15, phase_k3_k4_times, k34_err)
-    k34 += _phase("dry-run K3/K4 times", 30, phase_dryrun_times, dry["train_batch"], k34_err)
+    k34 += _phase("dry-run K3/K4 times", 30, phase_dryrun_times, dry["train_batch"],
+                  pix["batch"], k34_err)
     k5 = _phase("K5 times", 3, phase_k5_times, k5_err)
     _phase("K2 profile", 1, phase_k2_profile)
     _phase("dcor profile", 5, phase_rounds_profile, "dcor run", DCOR_PROFILE_ARGV,

@@ -18,12 +18,14 @@
 // does. lse and D are (N, H, S) fp32. Types fp32 or bf16 (one for all of q,
 // k, v); statistics, accumulators and the scores fp32. Any S (the ragged
 // tail is masked: keys >= S score -inf, rows >= S are not written), any
-// hd <= 128 (staged zero-padded to 32, 64 or 128). The forward also takes
-// hd up to 160 (pixtral-12b's heads; rows of 168 bf16, 336 bytes, still
+// hd <= 160, forward and backward (staged zero-padded to 32, 64, 128 or
+// 160; 160 is pixtral-12b's heads: rows of 168 bf16, 336 bytes, still
 // 16-byte multiples for cp.async and ldmatrix, and 21 16-byte groups, odd,
-// so ldmatrix stays conflict-free) and k, v of their own length Sk
-// (N, Sk, KV, hd) without a mask: the decoder's cross-attention over the
-// encoder's output; keys >= Sk score -inf. The plain versions are
+// so ldmatrix stays conflict-free). The forward also takes k, v of their
+// own length Sk (N, Sk, KV, hd) without a mask: the decoder's
+// cross-attention over the encoder's output; keys >= Sk score -inf. The
+// backward takes Sq = Sk (the wrapper runs it over query chunks across
+// lengths). The plain versions are
 // src/repro_torch/kernels/ref.py::attention_ref and ::attention_bwd_ref.
 //
 // Bound. On the path (N*H = 16*15, S = 512, hd = 64, causal, bf16) the
@@ -50,7 +52,9 @@
 // bf16 products, hi = bf16(dS) and lo = bf16(dS - hi), ~16 bits of its
 // mantissa; P enters dV as bf16, as in the forward. Masks are applied only
 // to tiles the band or the ragged edge cuts. The forward and dQ launch the
-// q tiles with the most keys first.
+// q tiles with the most keys first. Above hd 128 the dK/dV accumulators
+// would not fit one warp's registers: flash_mma_bwd_dkdv<HD, 2> gives each
+// 16 key rows two warps, a half of the head dim each.
 //
 // fp32: the FMA units (flash_fwd, flash_bwd_dq, flash_bwd_dkdv). TF32
 // tensor cores would keep 10 bits of each product's inputs and break the
@@ -580,11 +584,11 @@ __device__ __forceinline__ const bf16* frag_bt(const bf16* s, int k0, int n0, in
 // vec: hd % 8 == 0 and 16-byte aligned tensors, so cp.async 16 bytes at a
 // time; otherwise element by element (synchronous; visible at the next
 // __syncthreads, as the copies are).
-template <int HD>
+template <int HD, int NTHREADS = kThreads>
 __device__ __forceinline__ void load_tile(bf16* sm, const bf16* __restrict__ base,
                                           long long stride, int r0, int S, int hd, bool vec) {
   constexpr int CPR = HD / 8;          // 16-byte chunks per row
-  for (int i = threadIdx.x; i < kB * CPR; i += kThreads) {
+  for (int i = threadIdx.x; i < kB * CPR; i += NTHREADS) {
     const int r = i / CPR, d = (i % CPR) * 8, s = r0 + r;
     bf16* dst = sm + r * ld<HD>() + d;
     if (vec) {
@@ -601,11 +605,11 @@ __device__ __forceinline__ void load_tile(bf16* sm, const bf16* __restrict__ bas
 }
 
 // A 64 x LD tile to rows [r0, r0 + 64) of one head, rows < S and d < hd only.
-template <int HD>
+template <int HD, int NTHREADS = kThreads>
 __device__ __forceinline__ void store_tile(bf16* __restrict__ base, long long stride, int r0,
                                            int S, int hd, const bf16* sm, bool vec) {
   constexpr int CPR = HD / 8;
-  for (int i = threadIdx.x; i < kB * CPR; i += kThreads) {
+  for (int i = threadIdx.x; i < kB * CPR; i += NTHREADS) {
     const int r = i / CPR, d = (i % CPR) * 8, s = r0 + r;
     if (s >= S || d >= hd) continue;
     const bf16* src = sm + r * ld<HD>() + d;
@@ -617,14 +621,15 @@ __device__ __forceinline__ void store_tile(bf16* __restrict__ base, long long st
   }
 }
 
-// A warp's 16 x HD accumulator, times f, as bf16 into its rows of a tile.
-template <int HD>
-__device__ __forceinline__ void acc_to_tile(bf16* sm, const float (&acc)[HD / 8][4], float f,
-                                            int warp, int lane) {
+// A warp's 16 x 8NT accumulator, times f, as bf16 into rows r0.. and
+// columns c0.. of a tile.
+template <int HD, int NT>
+__device__ __forceinline__ void acc_to_tile(bf16* sm, const float (&acc)[NT][4], float f,
+                                            int r0, int c0, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int nt = 0; nt < HD / 8; ++nt) {
-    bf16* p = sm + (warp * 16 + g) * ld<HD>() + nt * 8 + 2 * t;
+  for (int nt = 0; nt < NT; ++nt) {
+    bf16* p = sm + (r0 + g) * ld<HD>() + c0 + nt * 8 + 2 * t;
     *reinterpret_cast<uint32_t*>(p) = pack(acc[nt][0] * f, acc[nt][1] * f);
     *reinterpret_cast<uint32_t*>(p + 8 * ld<HD>()) = pack(acc[nt][2] * f, acc[nt][3] * f);
   }
@@ -801,7 +806,7 @@ __global__ void __launch_bounds__(kThreads) flash_mma_fwd(
     acc[i][2] /= lc[1];
     acc[i][3] /= lc[1];
   }
-  acc_to_tile<HD>(sQ, acc, 1.f, warp, lane);
+  acc_to_tile<HD>(sQ, acc, 1.f, warp * 16, 0, lane);
   __syncthreads();
   store_tile<HD>(o + (static_cast<long long>(n) * S * H + h) * hd, qstride, q0, S, hd, sQ, vec);
 }
@@ -948,7 +953,7 @@ __global__ void __launch_bounds__(kThreads) flash_mma_bwd_dq(
     __syncthreads();
   }
 
-  acc_to_tile<HD>(sQ, acc, scale, warp, lane);
+  acc_to_tile<HD>(sQ, acc, scale, warp * 16, 0, lane);
   __syncthreads();
   store_tile<HD>(dq + qoff, qstride, q0, S, hd, sQ, vec);
 }
@@ -956,15 +961,23 @@ __global__ void __launch_bounds__(kThreads) flash_mma_bwd_dq(
 // ---------------------------------------------------------------------------
 // backward, dK and dV: one block per (k tile, KV head), after flash_mma_bwd_dq
 // (D). It walks the G query heads of its group and their q tiles in a fixed
-// order, (Q, dO, lse, D) of the next one in flight.
+// order, (Q, dO, lse, D) of the next one in flight. SPLIT warps own each 16
+// key rows, each the dK and dV columns of its part of the head dim: 1 up to
+// hd 128; 2 above, where one warp's dK and dV accumulators alone would be
+// 160 fp32 registers a thread at hd 160, beside the 64 of the S^T and dP^T
+// tiles (flash_mma_bwd_dkdv<128, 1> already holds 255 and spills). Each
+// warp of a pair computes S^T and dP^T over the whole head dim (a pair
+// computes both twice), and accumulates 80 columns of dK and of dV.
 // ---------------------------------------------------------------------------
-template <int HD>
-__global__ void __launch_bounds__(kThreads) flash_mma_bwd_dkdv(
+template <int HD, int SPLIT>
+__global__ void __launch_bounds__(kThreads * SPLIT) flash_mma_bwd_dkdv(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dbuf,
     bf16* __restrict__ dk, bf16* __restrict__ dv, int N, int S, int H, int KV, int hd,
     int causal, int window, float scale, int vec) {
-  constexpr int LD = ld<HD>(), NT = HD / 8, KS = HD / 16, T = kB * LD;
+  constexpr int LD = ld<HD>(), KS = HD / 16, T = kB * LD, NTHREADS = kThreads * SPLIT;
+  constexpr int COLS = HD / SPLIT, NT = COLS / 8, KC = COLS / 16;   // a warp's columns
+  static_assert(COLS % 16 == 0, "a warp's columns are whole k16 steps");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sK = reinterpret_cast<bf16*>(smem_raw);
   bf16* sV = sK + T;
@@ -976,6 +989,8 @@ __global__ void __launch_bounds__(kThreads) flash_mma_bwd_dkdv(
   const int k0 = static_cast<int>(blockIdx.x) / heads * kB;   // the most queries first
   const int n = (blockIdx.x % heads) / KV, kvh = blockIdx.x % KV, G = H / KV;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  // this warp's key rows and head-dim columns
+  const int rows = (SPLIT == 1 ? warp : warp % 4) * 16, c0 = SPLIT == 1 ? 0 : warp / 4 * COLS;
   const long long qstride = static_cast<long long>(H) * hd;
   const long long kstride = static_cast<long long>(KV) * hd;
   const long long koff = (static_cast<long long>(n) * S * KV + kvh) * hd;
@@ -988,15 +1003,17 @@ __global__ void __launch_bounds__(kThreads) flash_mma_bwd_dkdv(
     const int h = kvh * G + step / nq, q0 = (qt0 + step % nq) * kB;
     const long long qoff = (static_cast<long long>(n) * S * H + h) * hd;
     const long long soff = (static_cast<long long>(n) * H + h) * S;
-    load_tile<HD>(sQ + stage * T, q + qoff, qstride, q0, S, hd, vec);
-    load_tile<HD>(sdO + stage * T, dout + qoff, qstride, q0, S, hd, vec);
-    const int r = threadIdx.x % kB, row = q0 + r;
-    const float* src = (threadIdx.x < kB ? lse : dbuf) + soff;
-    float* dst = (threadIdx.x < kB ? sL : sD) + stage * kB + r;
-    cp4(dst, row < S ? src + row : src, row < S ? 4 : 0);
+    load_tile<HD, NTHREADS>(sQ + stage * T, q + qoff, qstride, q0, S, hd, vec);
+    load_tile<HD, NTHREADS>(sdO + stage * T, dout + qoff, qstride, q0, S, hd, vec);
+    if (SPLIT == 1 || threadIdx.x < 2 * kB) {
+      const int r = threadIdx.x % kB, row = q0 + r;
+      const float* src = (threadIdx.x < kB ? lse : dbuf) + soff;
+      float* dst = (threadIdx.x < kB ? sL : sD) + stage * kB + r;
+      cp4(dst, row < S ? src + row : src, row < S ? 4 : 0);
+    }
   };
-  load_tile<HD>(sK, k + koff, kstride, k0, S, hd, vec);
-  load_tile<HD>(sV, v + koff, kstride, k0, S, hd, vec);
+  load_tile<HD, NTHREADS>(sK, k + koff, kstride, k0, S, hd, vec);
+  load_tile<HD, NTHREADS>(sV, v + koff, kstride, k0, S, hd, vec);
   issue(0, 0);
   cp_commit();
 
@@ -1004,7 +1021,7 @@ __global__ void __launch_bounds__(kThreads) flash_mma_bwd_dkdv(
 #pragma unroll
   for (int i = 0; i < NT; ++i)
     gk[i][0] = gk[i][1] = gk[i][2] = gk[i][3] = gv[i][0] = gv[i][1] = gv[i][2] = gv[i][3] = 0.f;
-  const int key0 = k0 + warp * 16 + g;       // this thread's keys: key0, key0 + 8
+  const int key0 = k0 + rows + g;            // this thread's keys: key0, key0 + 8
   const float sl2 = scale * kLog2e;           // P = 2^(s sl2 - lse log2(e))
 
   for (int it = 0; it < steps; ++it) {
@@ -1030,8 +1047,8 @@ __global__ void __launch_bounds__(kThreads) flash_mma_bwd_dkdv(
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
       uint32_t a[4], c[4];
-      ldsm(a, frag_a<LD>(sK, warp * 16, kk * 16, lane));
-      ldsm(c, frag_a<LD>(sV, warp * 16, kk * 16, lane));
+      ldsm(a, frag_a<LD>(sK, rows, kk * 16, lane));
+      ldsm(c, frag_a<LD>(sV, rows, kk * 16, lane));
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         uint32_t b[4];
@@ -1055,19 +1072,19 @@ __global__ void __launch_bounds__(kThreads) flash_mma_bwd_dkdv(
         s[nt][i] = p;
         dp[nt][i] = p * (dp[nt][i] - cD[qi]);
       }
-    // dV += bf16(P^T) dO; dK += dS^T Q with dS^T as bf16 hi + lo
+    // this warp's columns: dV += bf16(P^T) dO; dK += dS^T Q, dS^T as bf16 hi + lo
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       uint32_t a[4], hi[4], lo[4];
       frag_of(a, s, kk);
       frag_split(hi, lo, dp, kk);
 #pragma unroll
-      for (int dj = 0; dj < KS; ++dj) {
+      for (int dj = 0; dj < KC; ++dj) {
         uint32_t b[4];
-        ldsm_t(b, frag_bt<LD>(cdO, kk * 16, dj * 16, lane));
+        ldsm_t(b, frag_bt<LD>(cdO, kk * 16, c0 + dj * 16, lane));
         mma(gv[2 * dj], a, b[0], b[1]);
         mma(gv[2 * dj + 1], a, b[2], b[3]);
-        ldsm_t(b, frag_bt<LD>(cQ, kk * 16, dj * 16, lane));
+        ldsm_t(b, frag_bt<LD>(cQ, kk * 16, c0 + dj * 16, lane));
         mma(gk[2 * dj], hi, b[0], b[1]);
         mma(gk[2 * dj + 1], hi, b[2], b[3]);
         mma(gk[2 * dj], lo, b[0], b[1]);
@@ -1077,21 +1094,20 @@ __global__ void __launch_bounds__(kThreads) flash_mma_bwd_dkdv(
     __syncthreads();
   }
 
-  acc_to_tile<HD>(sK, gk, scale, warp, lane);
-  acc_to_tile<HD>(sV, gv, 1.f, warp, lane);
+  acc_to_tile<HD>(sK, gk, scale, rows, c0, lane);
+  acc_to_tile<HD>(sV, gv, 1.f, rows, c0, lane);
   __syncthreads();
-  store_tile<HD>(dk + koff, kstride, k0, S, hd, sK, vec);
-  store_tile<HD>(dv + koff, kstride, k0, S, hd, sV, vec);
+  store_tile<HD, NTHREADS>(dk + koff, kstride, k0, S, hd, sK, vec);
+  store_tile<HD, NTHREADS>(dv + koff, kstride, k0, S, hd, sV, vec);
 }
 
 }  // namespace tc
 
-// the forward takes hd up to 160, the backward up to 128
-bool dims_ok(long long N, long long S, long long Sk, long long H, long long KV, long long hd,
-             long long max_hd) {
+// both directions take hd up to 160
+bool dims_ok(long long N, long long S, long long Sk, long long H, long long KV, long long hd) {
   return N >= 1 && N <= 65535 && S >= 1 && S <= 0x7fffffffLL - kBQ && Sk >= 1 &&
          Sk <= 0x7fffffffLL - kBK && H >= 1 && H <= 65535 && KV >= 1 && H % KV == 0 &&
-         hd >= 1 && hd <= max_hd && N * S * H * hd < (1LL << 62) &&
+         hd >= 1 && hd <= 160 && N * S * H * hd < (1LL << 62) &&
          N * Sk * KV * hd < (1LL << 62);
 }
 
@@ -1179,11 +1195,12 @@ int launch_bwd_mma(const void* q, const void* k, const void* v, const void* o, c
                    int H, int KV, int hd, int causal, int window, float scale, cudaStream_t st) {
   using tc::bf16;
   constexpr int smem_q = tc::dq_smem<HD>(), smem_kv = tc::dkdv_smem<HD>();
+  constexpr int split = HD > 128 ? 2 : 1;   // warps on each 16 key rows of dK/dV
   static const cudaError_t attr = [] {   // once per instantiation, as launch_fwd
     cudaError_t e = cudaFuncSetAttribute(tc::flash_mma_bwd_dq<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(tc::flash_mma_bwd_dkdv<HD>,
+      e = cudaFuncSetAttribute(tc::flash_mma_bwd_dkdv<HD, split>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
     return e;
   }();
@@ -1203,7 +1220,7 @@ int launch_bwd_mma(const void* q, const void* k, const void* v, const void* o, c
       KV, hd, causal, window, scale, vec);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  tc::flash_mma_bwd_dkdv<HD><<<kv_blocks, tc::kThreads, smem_kv, st>>>(
+  tc::flash_mma_bwd_dkdv<HD, split><<<kv_blocks, tc::kThreads * split, smem_kv, st>>>(
       qt, kt, vt, dot, lse, dbuf, static_cast<bf16*>(dk), static_cast<bf16*>(dv), N, S, H, KV,
       hd, causal, window, scale, vec);
   return static_cast<int>(cudaGetLastError());
@@ -1220,7 +1237,7 @@ extern "C" int flash_attention_forward(const void* q, const void* k, const void*
                                        float* lse, long long N, long long S, long long Sk,
                                        long long H, long long KV, long long hd, int causal,
                                        long long window, float scale, int bf16, void* stream) {
-  if (!dims_ok(N, S, Sk, H, KV, hd, 160) || window < 0 || window > 0x7fffffffLL ||
+  if (!dims_ok(N, S, Sk, H, KV, hd) || window < 0 || window > 0x7fffffffLL ||
       (Sk != S && (causal || window)))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1245,15 +1262,15 @@ extern "C" int flash_attention_forward(const void* q, const void* k, const void*
 }
 
 // The backward: dq like q, dk and dv like k; dbuf (N, H, S) fp32 scratch
-// for D. Launches flash_bwd_dq then flash_bwd_dkdv on `stream`; does not
-// synchronise. Returns a cudaError_t.
+// for D; S = Sk, hd up to 160. Launches flash_bwd_dq then flash_bwd_dkdv
+// on `stream`; does not synchronise. Returns a cudaError_t.
 extern "C" int flash_attention_backward(const void* q, const void* k, const void* v,
                                         const void* o, const void* dout, const float* lse,
                                         float* dbuf, void* dq, void* dk, void* dv, long long N,
                                         long long S, long long H, long long KV, long long hd,
                                         int causal, long long window, float scale, int bf16,
                                         void* stream) {
-  if (!dims_ok(N, S, S, H, KV, hd, 128) || window < 0 || window > 0x7fffffffLL)
+  if (!dims_ok(N, S, S, H, KV, hd) || window < 0 || window > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n = static_cast<int>(N), s = static_cast<int>(S), h = static_cast<int>(H),
@@ -1267,31 +1284,33 @@ extern "C" int flash_attention_backward(const void* q, const void* k, const void
   if (bf16) {
     if (hd <= 32) return BWD_MMA(32);
     if (hd <= 64) return BWD_MMA(64);
-    return BWD_MMA(128);
+    if (hd <= 128) return BWD_MMA(128);
+    return BWD_MMA(160);
   }
 #undef BWD_MMA
   if (hd <= 32) return BWD(float, 32);
   if (hd <= 64) return BWD(float, 64);
-  return BWD(float, 128);
+  if (hd <= 128) return BWD(float, 128);
+  return BWD(float, 160);
 #undef BWD
 }
 
 // Dynamic shared memory of a bf16 kernel (0 forward, 1 dQ, 2 dK/dV) at the
-// head dim hd, in bytes; the fp32 kernels' likewise (bf16 = 0); -1 for a
-// kernel not built at that hd (the backward above 128).
+// head dim hd, in bytes; the fp32 kernels' likewise (bf16 = 0).
 extern "C" int flash_attention_smem_bytes(int kernel, long long hd, int bf16) {
   const int i = hd <= 32 ? 0 : hd <= 64 ? 1 : hd <= 128 ? 2 : 3;
-  if (kernel != 0 && i == 3) return -1;
   if (bf16) {
     const int fwd[] = {tc::fwd_smem<32>(), tc::fwd_smem<64>(), tc::fwd_smem<128>(),
                        tc::fwd_smem<160>()};
-    const int dq[] = {tc::dq_smem<32>(), tc::dq_smem<64>(), tc::dq_smem<128>()};
-    const int dkdv[] = {tc::dkdv_smem<32>(), tc::dkdv_smem<64>(), tc::dkdv_smem<128>()};
+    const int dq[] = {tc::dq_smem<32>(), tc::dq_smem<64>(), tc::dq_smem<128>(),
+                      tc::dq_smem<160>()};
+    const int dkdv[] = {tc::dkdv_smem<32>(), tc::dkdv_smem<64>(), tc::dkdv_smem<128>(),
+                        tc::dkdv_smem<160>()};
     return kernel == 0 ? fwd[i] : kernel == 1 ? dq[i] : dkdv[i];
   }
   const int fwd[] = {fwd_smem<32>(), fwd_smem<64>(), fwd_smem<128>(), fwd_smem<160>()};
-  const int dq[] = {dq_smem<32>(), dq_smem<64>(), dq_smem<128>()};
-  const int dkdv[] = {dkdv_smem<32>(), dkdv_smem<64>(), dkdv_smem<128>()};
+  const int dq[] = {dq_smem<32>(), dq_smem<64>(), dq_smem<128>(), dq_smem<160>()};
+  const int dkdv[] = {dkdv_smem<32>(), dkdv_smem<64>(), dkdv_smem<128>(), dkdv_smem<160>()};
   return kernel == 0 ? fwd[i] : kernel == 1 ? dq[i] : dkdv[i];
 }
 

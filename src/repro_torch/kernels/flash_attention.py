@@ -14,10 +14,11 @@ after RoPE: q (N, Sq, H, hd), k and v (N, Sk, KV, hd), H a multiple of KV
 160, any S. Sk may differ from Sq only without a mask (``causal=False,
 window=0``): the decoder's cross-attention over the encoder's output, the
 one way the model calls it. It returns (N, Sq, H, hd) in q's dtype,
-differentiable w.r.t. q, k and v. The backward takes hd <= 128 only; above,
-it raises ``NotImplementedError`` ("not yet ported") on either device. Its
-kernels take Sq = Sk; across lengths the wrapper runs them over chunks of
-the queries (``_cross_backward``). A CUDA tensor goes to the hand-written
+differentiable w.r.t. q, k and v. The backward takes every hd the forward
+does (in bf16 above 128 its dK/dV kernel splits the head dim over two
+warps, ``flash_mma_bwd_dkdv<HD, 2>``). Its kernels take Sq = Sk; across
+lengths the wrapper runs them over chunks of the queries
+(``_cross_backward``). A CUDA tensor goes to the hand-written
 kernels (``csrc/flash_attention.cu``, built by ``nvcc`` at first use); a
 CPU tensor goes to the plain versions ``kernels/ref.py::attention_ref`` and
 ``attention_bwd_ref``; a fake tensor (of the card, or of the meta device)
@@ -56,7 +57,6 @@ BACKWARD_SHAPES: Counter = Counter()
 _LIB: ctypes.CDLL | None = None
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 160        # the forward's; pixtral-12b's heads
-MAX_BWD_HEAD_DIM = 128
 MAX_GRID_YZ = 65535       # N and H ride the grid's z and y dimensions
 
 
@@ -116,10 +116,6 @@ def _raise_on(err: int, what: str) -> None:
 
 def _check_backward(q, k, v, o, lse, do, causal: bool, window: int) -> None:
     _check(q, k, v, causal, window)
-    if q.shape[3] > MAX_BWD_HEAD_DIM:
-        raise NotImplementedError(
-            f"flash_attention backward at head_dim {q.shape[3]} is not yet ported (it takes "
-            f"head_dim <= {MAX_BWD_HEAD_DIM})")
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
         raise ValueError("flash_attention backward takes o and do like q")
     if lse.shape != (q.shape[0], q.shape[2], q.shape[1]) or lse.dtype != torch.float32:
@@ -165,9 +161,10 @@ def attn_forward(q, k, v, *, causal: bool, window: int = 0) -> tuple[torch.Tenso
 
 
 def attn_backward(q, k, v, o, lse, do, *, causal: bool, window: int = 0):
-    """(dq, dk, dv) of ``sum(do * o)``, ``o, lse = attn_forward(q, k, v)``;
-    hd <= 128 only. On the card, Sq != Sk (cross-attention, no mask) runs
-    the Sq = Sk kernels over chunks of the queries (:func:`_cross_backward`)."""
+    """(dq, dk, dv) of ``sum(do * o)``, ``o, lse = attn_forward(q, k, v)``,
+    at every hd the forward takes. On the card, Sq != Sk (cross-attention,
+    no mask) runs the Sq = Sk kernels over chunks of the queries
+    (:func:`_cross_backward`)."""
     _check_backward(q, k, v, o, lse, do, causal, window)
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window)

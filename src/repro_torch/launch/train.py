@@ -40,8 +40,8 @@ from repro_torch.api import (CheckpointSpec, ChurnSpec, CodecSpec, DataSpec,
 
 def _registry_type(reg):
     """argparse ``type=`` adapter: canonicalize through a registry, failing
-    at PARSE time with the full registered choice set, or with "not yet
-    ported" for a registered component the port does not have yet."""
+    at PARSE time with the full registered choice set, or with "has no
+    port yet" for a registered component the port does not have yet."""
 
     def parse(s: str):
         try:
@@ -49,7 +49,7 @@ def _registry_type(reg):
         except registry.RegistryError as e:
             raise argparse.ArgumentTypeError(str(e)) from None
         if not reg.is_ported(canon):
-            raise argparse.ArgumentTypeError(f"{reg.kind} {canon!r} is not yet ported")
+            raise argparse.ArgumentTypeError(f"{reg.kind} {canon!r} has no port yet")
         return canon
 
     parse.__name__ = reg.kind.replace(" ", "_")

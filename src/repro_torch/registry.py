@@ -17,8 +17,8 @@ both packages. Lazy targets point at ``repro_torch`` modules.
 
 A component the port does not have yet stays registered under its name
 with ``ported=False``: a spec naming it validates and hashes as in the JAX
-package, and building or loading it raises ``NotImplementedError("... not
-yet ported")``. No component is left unported.
+package, and building or loading it raises ``NotImplementedError("... has
+no port yet")``. No component is left unported.
 
 The module is stdlib-only at import time; factories import their
 implementation lazily when built.
@@ -104,7 +104,7 @@ class Registry:
 
     def _check_ported(self, canon: str, e: dict) -> None:
         if not e.get("ported", True):
-            raise NotImplementedError(f"{self.kind} {canon!r} is not yet ported")
+            raise NotImplementedError(f"{self.kind} {canon!r} has no port yet")
 
     def load(self, spec: Any):
         """Import and return the entry's target class/object."""

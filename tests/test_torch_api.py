@@ -15,7 +15,7 @@ package's.
   * ``reuse=`` is accepted but adopts nothing (the port compiles no
     programs): a reused Federation trains as a fresh one.
   * A component the port does not have yet is registered, its spec
-    validates and hashes, and building it raises "not yet ported".
+    validates and hashes, and building it raises "has no port yet".
 """
 import dataclasses
 import json
@@ -162,7 +162,7 @@ def test_unported_components_are_registered_and_refused():
         reg = getattr(registry, name)
         assert sorted(n for n in reg.names() if not reg.is_ported(n)) == sorted(names)
         for n in names:
-            with pytest.raises(NotImplementedError, match="not yet ported"):
+            with pytest.raises(NotImplementedError, match="has no port yet"):
                 reg.load(n) if name == "trainers" else reg.build(n)
     for arch in ("whisper-base", "pixtral-12b"):
         assert registry.archs.build(arch).name == arch

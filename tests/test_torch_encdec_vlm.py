@@ -154,12 +154,12 @@ def test_plain_attention_at_head_dim_160_matches_pallas_kernel_and_jax(dtype, ca
 
 
 def test_wrapper_refuses_masks_across_lengths_and_backward_at_new_shapes():
-    """Sq != Sk takes neither causality nor a window; the backward does not
-    take hd above 128 (not yet ported), on the CPU as on the card, and
-    autograd through ``flash_attention`` reaches it. The backward at Sq !=
+    """Sq != Sk takes neither causality nor a window. The backward at Sq !=
     Sk runs (its plain version here; the square kernels over query chunks
     on the card) and equals ``attention_bwd_ref`` on random inputs (which
-    ``tests/test_torch_kernels.py`` holds against fp64 autograd there)."""
+    ``tests/test_torch_kernels.py`` holds against fp64 autograd there); so
+    does the backward at hd 160 (pixtral-12b's heads), called directly and
+    through autograd of ``flash_attention``."""
     g = torch.Generator().manual_seed(0)
     q, k, v, do = (torch.randn(*s, generator=g)
                    for s in ((2, 24, 4, 32), (2, 16, 2, 32), (2, 16, 2, 32), (2, 24, 4, 32)))
@@ -170,16 +170,15 @@ def test_wrapper_refuses_masks_across_lengths_and_backward_at_new_shapes():
     got = fa.attn_backward(q, k, v, o, lse, do, causal=False)
     want = attention_bwd_ref(q, k, v, o, lse, do, causal=False)
     assert all(a.abs().max() > 0 and torch.equal(a, b) for a, b in zip(got, want))
-    q160 = torch.zeros(2, 8, 4, 160)
-    o, lse = fa.attn_forward(q160, q160[:, :, :2].contiguous(), q160[:, :, :2].contiguous(),
-                             causal=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        fa.attn_backward(q160, q160[:, :, :2].contiguous(), q160[:, :, :2].contiguous(), o,
-                         lse, o, causal=True)
-    qa = q160.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        fa.flash_attention(qa, q160[:, :, :2].contiguous(), q160[:, :, :2].contiguous(),
-                           causal=True).sum().backward()
+    q, k, v, do = (torch.randn(*s, generator=g)
+                   for s in ((2, 8, 4, 160), (2, 8, 2, 160), (2, 8, 2, 160), (2, 8, 4, 160)))
+    o, lse = fa.attn_forward(q, k, v, causal=True)
+    got = fa.attn_backward(q, k, v, o, lse, do, causal=True)
+    want = attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+    assert all(a.abs().max() > 0 and torch.equal(a, b) for a, b in zip(got, want))
+    qa, ka, va = (t.clone().requires_grad_(True) for t in (q, k, v))
+    fa.flash_attention(qa, ka, va, causal=True).backward(do)
+    assert all(torch.equal(t.grad, w) for t, w in zip((qa, ka, va), want))
 
 
 # ---------------------------------------------------------------------------

@@ -81,7 +81,7 @@ def test_config_matches_jax_and_is_accepted(capsys):
     assert (FULL.resolved_head_dim, FULL.padded_vocab) == (64, 32001)
     assert registry.archs.is_ported(ARCH) and registry.archs.build(ARCH) == FULL
     assert train.build_parser().parse_args(["--arch", ARCH]).arch == ARCH
-    assert "not yet ported" not in capsys.readouterr().err
+    assert "has no port" not in capsys.readouterr().err
     spec = presets.llm(ARCH, clients=2, seq_len=16)
     assert spec.spec_hash() == japi.ExperimentSpec.from_json(spec.to_json()).spec_hash()
     fed = spec.build(device="cpu")

@@ -103,7 +103,7 @@ def test_unported_options_fail_loudly(capsys, tmp_path):
     for arch in ("whisper-base", "pixtral-12b"):
         assert train.build_parser().parse_args(["--arch", arch]).arch == arch
     assert train.build_parser().parse_args(["--exec", "sharded"]).exec_mode == "sharded"
-    assert "not yet ported" not in capsys.readouterr().err
+    assert "has no port" not in capsys.readouterr().err
     with pytest.raises(RuntimeError, match="torchrun --standalone --nproc-per-node 4"):
         train.main(argv + ["--exec", "sharded", "--devices", "4"])
 

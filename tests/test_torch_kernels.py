@@ -325,8 +325,8 @@ def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take():
                            torch.zeros(1, 4, 2, 168))
     with pytest.raises(ValueError):
         fa.flash_attention(q, kv, kv, window=-1)
-    # Sq != Sk (cross-attention) without a mask only, both ways; no backward
-    # at head_dim 160
+    # Sq != Sk (cross-attention) without a mask only, both ways; the
+    # backward at head_dim 160 as the plain backward
     kx = torch.zeros(2, 5, 2, 16)
     for mask in (dict(causal=True), dict(causal=False, window=3)):
         with pytest.raises(ValueError, match="Sq 8 != Sk 5"):
@@ -335,10 +335,12 @@ def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take():
     assert o.shape == q.shape and lse.shape == (2, 4, 8)
     grads = fa.attn_backward(q, kx, kx, o, lse, o, causal=False)
     assert [g.shape for g in grads] == [q.shape, kx.shape, kx.shape]
-    q160, kv160 = torch.zeros(1, 4, 2, 160), torch.zeros(1, 4, 2, 160)
+    g = torch.Generator().manual_seed(0)
+    q160, kv160 = torch.randn(1, 4, 2, 160, generator=g), torch.randn(1, 4, 2, 160, generator=g)
     o, lse = fa.attn_forward(q160, kv160, kv160, causal=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        fa.attn_backward(q160, kv160, kv160, o, lse, o, causal=True)
+    grads = fa.attn_backward(q160, kv160, kv160, o, lse, o, causal=True)
+    want = attention_bwd_ref(q160, kv160, kv160, o, lse, o, causal=True)
+    assert all(a.abs().max() > 0 and torch.equal(a, b) for a, b in zip(grads, want))
     qa = q.clone().requires_grad_(True)
     fa.flash_attention(qa, kx, kx, causal=False).sum().backward()
     assert qa.grad.shape == q.shape
@@ -480,6 +482,9 @@ def _close(got, want, rtol, atol):
     (2, 150, 4, 1, 128, True, 0),       # hd 128
     (2, 70, 3, 3, 40, True, 0),         # hd not a power of two
     (2, 90, 4, 2, 20, True, 0),         # hd not a multiple of 8: staged element by element
+    (2, 200, 8, 2, 160, True, 0),       # pixtral-12b's hd: dK/dV in two column halves
+    (2, 300, 8, 2, 160, True, 64),      # hd 160 with a window
+    (2, 90, 4, 2, 150, True, 0),        # hd 150: the hd-160 kernels, element by element
 ])
 def test_flash_attention_kernels_match_plain_on_card(cuda_device, N, S, H, KV, hd, causal,
                                                      window, dtype):
@@ -529,8 +534,9 @@ def test_flash_attention_kernels_match_plain_on_card(cuda_device, N, S, H, KV, h
 ])
 def test_flash_attention_forward_cross_and_hd160_match_plain_on_card(
         cuda_device, N, Sq, Sk, H, KV, hd, causal, dtype):
-    """The forward at Sq != Sk and at head dims above 128, against the plain
-    version at the forward's tolerances above (it has no backward there)."""
+    """The forward and the backward at Sq != Sk (the square kernels over
+    query chunks) and at head dims above 128, against the plain versions at
+    the tolerances above; the backward the same bits run to run."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
     q = torch.randn(N, Sq, H, hd, generator=g, device=cuda_device).to(dtype)
     k = torch.randn(N, Sk, KV, hd, generator=g, device=cuda_device).to(dtype)
@@ -543,6 +549,15 @@ def test_flash_attention_forward_cross_and_hd160_match_plain_on_card(
     tol = (2e-5, 2e-5) if dtype == torch.float32 else (2e-2, 1e-2)
     assert _close(o, o_want, *tol), float((o.float() - o_want.float()).abs().max())
     assert torch.allclose(lse, lse_want, atol=1e-5, rtol=1e-5)
+
+    do = torch.randn(N, Sq, H, hd, generator=g, device=cuda_device).to(dtype)
+    grads = fa.attn_backward(q, k, v, o, lse, do, causal=causal)
+    want = attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    bwd_tol = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 1e-2)
+    for name, a, b in zip("qkv", grads, want):
+        assert _close(a, b, *bwd_tol), (name, float((a.float() - b.float()).abs().max()))
+    again = fa.attn_backward(q, k, v, o, lse, do, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
 
 
 def _xent_labels(kind, logits, g):

@@ -107,7 +107,7 @@ def test_config_matches_jax_and_is_accepted(arch, capsys):
         (jcfg.resolved_head_dim, jcfg.padded_vocab, jcfg.d_ff_shared_resolved)
     assert registry.archs.is_ported(arch) and registry.archs.build(arch) == cfg
     assert train.build_parser().parse_args(["--arch", arch]).arch == arch
-    assert "not yet ported" not in capsys.readouterr().err
+    assert "has no port" not in capsys.readouterr().err
     spec = presets.llm(arch, clients=2, seq_len=16)
     assert spec.spec_hash() == japi.ExperimentSpec.from_json(spec.to_json()).spec_hash()
     fed = spec.build(device="cpu")

@@ -3,9 +3,12 @@
 against the JAX package's (``repro/core/local_loss.py:46-142``), two steps
 each from the same state and batches.
 
-Configs: the reduced smollm-360m and deepseek-moe-16b in fp32, the MoE's
-capacity pinned to its expert count as ``tests/test_models.py:81-83`` pins
-it (no token is dropped in either package, so no route decides a drop).
+Configs: the reduced smollm-360m, deepseek-moe-16b and pixtral-12b in
+fp32, the MoE's capacity pinned to its expert count as
+``tests/test_models.py:81-83`` pins it (no token is dropped in either
+package, so no route decides a drop); pixtral-12b at its own head dim, 160
+(K4's backward at hd 160 here in its plain version), with an 8-patch image
+frontend over the first half of the 16 positions, seeded numpy normals.
 The JAX package makes the weights, the aux head and the optimizer states;
 the bridge copies them, every tree taking the port's client axis of 1.
 The DTFL step runs at every tier the reduced config has (``n_modules`` 2:
@@ -39,14 +42,17 @@ from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
 torch.set_num_threads(2)
 LR = 1e-3
 B, S, STEPS = 2, 16, 2
-ARCHS = ("smollm-360m", "deepseek-moe-16b")
+ARCHS = ("smollm-360m", "deepseek-moe-16b", "pixtral-12b")
+# overrides of the reduced config: pixtral-12b's head dim, and an image
+# that leaves text positions
+OVERRIDES = {"pixtral-12b": dict(head_dim=160, n_frontend_tokens=8)}
 
 
 def _cfgs(arch, **extra):
     """(port, JAX) configs of ``arch``: reduced, fp32."""
     out = []
     for cfg in (get_config(arch), jget_config(arch)):
-        red = cfg.reduced().replace(dtype="float32", **extra)
+        red = cfg.reduced().replace(dtype="float32", **OVERRIDES.get(arch, {}), **extra)
         if red.n_experts:
             red = red.replace(capacity_factor=float(red.n_experts))
         out.append(red)
@@ -66,8 +72,15 @@ def _opt(jopt_state):
 
 def _batches(cfg):
     rng = np.random.default_rng(3)
-    return [{k: rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
-             for k in ("tokens", "labels")} for _ in range(STEPS)]
+    out = []
+    for _ in range(STEPS):
+        batch = {k: rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+                 for k in ("tokens", "labels")}
+        if cfg.frontend != "none":
+            batch["frontend"] = rng.standard_normal(
+                (B, cfg.n_frontend_tokens, cfg.d_frontend)).astype(np.float32)
+        out.append(batch)
+    return out
 
 
 def _by_path(tree, jax_tree: bool) -> dict:
