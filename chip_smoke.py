@@ -22,7 +22,9 @@ Phases (any failure exits non-zero and prints no result line):
      kernel: registers, shared memory and spills (ptxas) and HMMA
      instructions (``cuobjdump -sass``). Every bf16 K4 kernel must have
      HMMA, and the hd-64 ones, the path's, and the three hd-160 ones
-     (pixtral-12b's; twelve bf16 kernels in all) must spill nothing. Per K3
+     (pixtral-12b's; twelve bf16 kernels in all) must spill nothing; every
+     fp32 one (``flash_tf32_*``, split TF32; twelve) must have
+     ``HMMA.1688.F32.TF32`` and spill nothing. Per K3
      kernel: registers, stack, spills and its main loop's static SASS
      instructions per element streamed; none may have a stack frame. The
      same for K5: every kernel with
@@ -80,7 +82,7 @@ Phases (any failure exits non-zero and prints no result line):
      absolute tolerances of
      tests/test_torch_kernels.py: K4 fp32 2e-5 forward and 1e-4 backward,
      bf16 rtol 2e-2 with atol 1e-2; K3 loss 2e-4, gradient rtol 1e-5 fp32
-     and 1e-2 bf16); K4's backward and both K3 kernels must be
+     and 1e-2 bf16); K4's forward and backward and both K3 kernels must be
      bit-identical run to run. At the path's
      bf16 shape it also prints what K4's split of dS into bf16 hi + lo
      keeps against dS rounded to one bf16.
@@ -97,7 +99,9 @@ Phases (any failure exits non-zero and prints no result line):
      rows' ``launches``.
  10. the reduced SmolLM-360M on the card and on the CPU, as phase 6.
  11. K3 and K4 times as K2's, beside the bound (bytes over the memory
-     rate, or bf16 products over the tensor-core rate) and one PyTorch
+     rate, or bf16 products over the tensor-core rate, fp32 ones over the
+     fp32 rate and, beside it, three times them over the TF32 rate, the
+     split-TF32 bound) and one PyTorch
      call each (``F.cross_entropy``, ``F.scaled_dot_product_attention``;
      with a window, SDPA takes it as an explicit mask), timed only, by
      events and in CUDA graphs, at the path's shapes and hymba-1.5b's
@@ -597,11 +601,13 @@ def k3_build_report() -> None:
 
 def k4_build_report() -> None:
     """K4's kernels as built: registers, shared memory, spills (the ptxas
-    report) and HMMA instructions (the SASS). Fails unless every bf16
-    kernel (``flash_mma_*``) runs its products on the tensor cores, and the
-    hd-64 bf16 kernels, the path's, and the three hd-160 ones
-    (pixtral-12b's; the dK/dV kernel there is ``flash_mma_bwd_dkdv<160, 2>``)
-    spill nothing."""
+    report) and HMMA instructions (the SASS; for the fp32 kernels those of
+    m16n8k8 TF32, ``HMMA.1688.F32.TF32``). Fails unless every bf16 kernel
+    (``flash_mma_*``) runs its products on the tensor cores, and the hd-64
+    bf16 kernels, the path's, and the three hd-160 ones (pixtral-12b's; the
+    dK/dV kernel there is ``flash_mma_bwd_dkdv<160, 2>``) spill nothing;
+    and unless all 12 fp32 kernels (``flash_tf32_*``, split TF32) have TF32
+    HMMA and none spills."""
     import ctypes
     import re
 
@@ -610,32 +616,34 @@ def k4_build_report() -> None:
 
     lib_path = nvcc.library_path("flash_attention")
     ptxas = _ptxas_report(lib_path.with_suffix(".log").read_text())
-    hmma = _hmma_counts(lib_path)
+    hmma, tf32 = _hmma_counts(lib_path), _hmma_counts(lib_path, "HMMA.1688.F32.TF32")
     lib = fa.load_library()
     lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
     lib.flash_attention_smem_bytes.restype = ctypes.c_int
     kinds = {"fwd": 0, "bwd_dq": 1, "bwd_dkdv": 2}
-    seen = 0
+    seen = {"bf16": 0, "fp32": 0}
     for mangled, info in sorted(ptxas.items()):
-        m = re.search(r"\d(flash_(?:mma_)?(fwd|bwd_dq|bwd_dkdv))I(f?)Li(\d+)E", mangled)
+        m = re.search(r"\d(flash_(mma|tf32)_(fwd|bwd_dq|bwd_dkdv))ILi(\d+)E", mangled)
         if m is None:
             continue
-        name, kind, fp32, hd = m.group(1), m.group(2), m.group(3) == "f", int(m.group(4))
-        bf16 = name.startswith("flash_mma_")
-        n_hmma = hmma.get(mangled)
+        name, kind, hd = m.group(1), m.group(3), int(m.group(4))
+        bf16 = m.group(2) == "mma"
+        n_hmma = (hmma if bf16 else tf32).get(mangled, 0)
         dyn = lib.flash_attention_smem_bytes(kinds[kind], hd, int(bf16))
-        print(f"[build] K4 {name}<{'fp32' if fp32 else 'bf16'}, hd {hd}>: "
+        spills = info["spill_stores"] or info["spill_loads"]
+        print(f"[build] K4 {name}<{'bf16' if bf16 else 'fp32'}, hd {hd}>: "
               f"{info['registers']} registers, {dyn} bytes of (dynamic) shared memory, "
               f"spills {info['spill_stores']} / {info['spill_loads']} bytes (stores / loads), "
-              f"{n_hmma} HMMA")
-        if bf16 and not n_hmma:
-            fail(f"{name}<{hd}> has no HMMA instruction: its products are not on the tensor cores")
-        if bf16 and hd in (64, 160) and (info["spill_stores"] or info["spill_loads"]):
+              f"{n_hmma} {'HMMA' if bf16 else 'HMMA.1688.F32.TF32'}")
+        seen["bf16" if bf16 else "fp32"] += 1
+        if not n_hmma:
+            fail(f"{name}<{hd}> has no {'' if bf16 else 'TF32 '}HMMA instruction: its products "
+                 "are not on the tensor cores")
+        if spills and (not bf16 or hd in (64, 160)):
             fail(f"{name}<{hd}> spills registers")
-        seen += bf16
-    if seen != 12:
-        fail(f"expected 12 bf16 K4 kernels (3 kernels x hd 32/64/128/160) in the build log, "
-             f"found {seen}")
+    if seen != {"bf16": 12, "fp32": 12}:
+        fail(f"expected 12 bf16 and 12 fp32 K4 kernels (3 kernels x hd 32/64/128/160 each) in "
+             f"the build log, found {seen}")
 
 
 # K5's kernels; all but prep, bprep and gates run split-TF32 products
@@ -1159,8 +1167,8 @@ def _profile(fn):
 
 K2_KERNELS = ("pdist_fwd", "pdist_bwd")
 K3_KERNELS = ("xent_fwd", "xent_bwd")
-K4_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv",       # fp32
-              "flash_mma_fwd", "flash_mma_bwd_dq", "flash_mma_bwd_dkdv")  # bf16
+K4_KERNELS = ("flash_tf32_fwd", "flash_tf32_bwd_dq", "flash_tf32_bwd_dkdv",  # fp32
+              "flash_mma_fwd", "flash_mma_bwd_dq", "flash_mma_bwd_dkdv")     # bf16
 
 
 def phase_k2_profile() -> None:
@@ -2221,7 +2229,7 @@ def _ds_rounding(q, k, v, o, lse, do, grads) -> None:
 def _check_k4(label: str, N: int, S: int, H: int, KV: int, hd: int, causal: bool,
               window: int, dtype, g) -> tuple[float, float]:
     """K4 forward and backward at one shape and dtype against their plain
-    versions (the tolerances of tests/test_torch_kernels.py), the backward
+    versions (the tolerances of tests/test_torch_kernels.py), both
     bit-identical run to run. Returns the max forward and backward |diff|."""
     import torch
 
@@ -2233,10 +2241,13 @@ def _check_k4(label: str, N: int, S: int, H: int, KV: int, hd: int, causal: bool
     v = torch.randn(N, S, KV, hd, generator=g, device="cuda").to(dtype)
     do = torch.randn(N, S, H, hd, generator=g, device="cuda").to(dtype)
     o, lse = fa.attn_forward(q, k, v, causal=causal, window=window)
+    o2, lse2 = fa.attn_forward(q, k, v, causal=causal, window=window)
     grads = fa.attn_backward(q, k, v, o, lse, do, causal=causal, window=window)
     again = fa.attn_backward(q, k, v, o, lse, do, causal=causal, window=window)
     torch.cuda.synchronize()
     dt = str(dtype).removeprefix("torch.")
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+        fail(f"flash_attention forward is not bit-identical run to run on {label} {dt}")
     if not all(torch.equal(a, b) for a, b in zip(grads, again)):
         fail(f"flash_attention backward is not bit-identical run to run on {label} {dt}")
     o_want, lse_want = attention_ref(q, k, v, causal=causal, window=window)
@@ -2261,7 +2272,7 @@ def _check_k4(label: str, N: int, S: int, H: int, KV: int, hd: int, causal: bool
                  f"{label}: max |diff| {d}")
     print(f"[kernels] flash_attention {label} {(N, S, H, KV, hd)} {dt} causal={causal} "
           f"window={window}: forward max |diff| {fwd:.3g}, backward max |diff| {bwd:.3g}, "
-          f"backward bit-identical run to run")
+          f"forward and backward bit-identical run to run")
     if label == "path" and dtype == torch.bfloat16:
         _ds_rounding(q, k, v, o, lse, do, grads)
     return fwd, bwd
@@ -2302,8 +2313,8 @@ def _check_k3(label: str, T: int, V: int, dtype, g) -> tuple[float, float]:
 def _check_k4_forward(label: str, N: int, Sq: int, Sk: int, H: int, KV: int, hd: int,
                       causal: bool, window: int, dtype, g) -> tuple[float, float]:
     """K4's forward at one shape and dtype against its plain version (the
-    tolerances of ``_check_k4``), the forward of ``_check_k4_across``.
-    Returns (max |diff|, 0.0)."""
+    tolerances of ``_check_k4``), bit-identical run to run; the forward of
+    ``_check_k4_across``. Returns (max |diff|, 0.0)."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -2313,16 +2324,19 @@ def _check_k4_forward(label: str, N: int, Sq: int, Sk: int, H: int, KV: int, hd:
     k = torch.randn(N, Sk, KV, hd, generator=g, device="cuda").to(dtype)
     v = torch.randn(N, Sk, KV, hd, generator=g, device="cuda").to(dtype)
     o, lse = fa.attn_forward(q, k, v, causal=causal, window=window)
+    o2, lse2 = fa.attn_forward(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     o_want, lse_want = attention_ref(q, k, v, causal=causal, window=window)
     tol = (2e-5, 2e-5) if dtype == torch.float32 else (2e-2, 1e-2)
     ok, fwd = _close(o, o_want, *tol)
     dt = str(dtype).removeprefix("torch.")
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+        fail(f"flash_attention forward is not bit-identical run to run on {label} {dt}")
     if not ok or not torch.allclose(lse, lse_want, atol=1e-5, rtol=1e-5):
         fail(f"flash_attention forward differs from its plain version on {label} {dt}: "
              f"max |diff| {fwd}")
     print(f"[kernels] flash_attention {label} {(N, Sq, Sk, H, KV, hd)} {dt} causal={causal} "
-          f"window={window}: forward max |diff| {fwd:.3g}")
+          f"window={window}: forward max |diff| {fwd:.3g}, bit-identical run to run")
     return fwd, 0.0
 
 
@@ -2495,7 +2509,9 @@ def _k4_times(N: int, S: int, H: int, KV: int, hd: int, g, window: int = 0,
               ) -> dict:
     """K4 at (N, S, H/KV, hd) (keys of length ``Sk``, S by default), causal
     or not (and windowed if ``window``), in ``dtype`` (bf16 on the tensor
-    cores, fp32 on the FMA units): CUDA events and CUDA-graph device time
+    cores; fp32 there too, in split TF32, its rows also carrying
+    ``split_tf32_bound_ms``: three TF32 products per fp32 one at the TF32
+    rate, beside the bound at the fp32 rate): CUDA events and CUDA-graph device time
     for the kernels, their plain versions and SDPA (timed here, never
     called by the port; a window goes to it as an explicit boolean mask;
     the backward yardstick is its forward and autograd's backward, both
@@ -2557,6 +2573,13 @@ def _k4_times(N: int, S: int, H: int, KV: int, hd: int, g, window: int = 0,
         attn["backward"]["bound_ms"], attn["backward"]["bound_by"] = _bound(
             4 * q_bytes + 4 * kv_bytes + lse_bytes,
             fa.backward_flops(N, S, Sk, H, hd, causal, window), rate)
+    if dt == torch.float32:
+        for direction, nbytes, flops in (
+                ("forward", 2 * q_bytes + 2 * kv_bytes + lse_bytes, fa.forward_flops),
+                ("backward", 4 * q_bytes + 4 * kv_bytes + lse_bytes, fa.backward_flops)):
+            if direction in attn:
+                attn[direction]["split_tf32_bound_ms"] = _bound(
+                    nbytes, 3 * flops(N, S, Sk, H, hd, causal, window), TF32_OPS_PER_S)[0]
     return attn
 
 
@@ -2609,7 +2632,9 @@ def _print_times(name: str, shape: str, times: dict) -> None:
               f"library {t['library_ms']:.4f} ms (device "
               f"{t['library_device_ms']:.4f} ms), bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']}), {100 * t['bound_ms'] / t['device_ms']:.1f}% of it on "
-              f"device time")
+              f"device time" + (f"; split-TF32 bound {t['split_tf32_bound_ms']:.4f} ms, "
+                                f"{100 * t['split_tf32_bound_ms'] / t['device_ms']:.1f}% of it"
+                                if "split_tf32_bound_ms" in t else ""))
 
 
 def phase_k3_k4_times(err: dict) -> list[dict]:

@@ -15,8 +15,10 @@ after RoPE: q (N, Sq, H, hd), k and v (N, Sk, KV, hd), H a multiple of KV
 window=0``): the decoder's cross-attention over the encoder's output, the
 one way the model calls it. It returns (N, Sq, H, hd) in q's dtype,
 differentiable w.r.t. q, k and v. The backward takes every hd the forward
-does (in bf16 above 128 its dK/dV kernel splits the head dim over two
-warps, ``flash_mma_bwd_dkdv<HD, 2>``). Its kernels take Sq = Sk; across
+does (its dK/dV kernel splits the head dim over two warps in bf16 above
+128, ``flash_mma_bwd_dkdv<HD, 2>``, and in fp32 above 64). bf16 runs on
+the tensor cores in bf16 (``flash_mma_*``), fp32 in split TF32, three TF32
+products per fp32 one (``flash_tf32_*``). Its kernels take Sq = Sk; across
 lengths the wrapper runs them over chunks of the queries
 (``_cross_backward``). A CUDA tensor goes to the hand-written
 kernels (``csrc/flash_attention.cu``, built by ``nvcc`` at first use); a
@@ -57,7 +59,7 @@ BACKWARD_SHAPES: Counter = Counter()
 _LIB: ctypes.CDLL | None = None
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 160        # the forward's; pixtral-12b's heads
-MAX_GRID_YZ = 65535       # N and H ride the grid's z and y dimensions
+MAX_GRID_YZ = 65535       # the C interface's bounds on N and H
 
 
 def load_library() -> ctypes.CDLL:
@@ -155,7 +157,7 @@ def attn_forward(q, k, v, *, causal: bool, window: int = 0) -> tuple[torch.Tenso
             N, S, Sk, H, k.shape[2], hd, int(causal), window, _scale(hd),
             int(q.dtype == torch.bfloat16), stream)
     _raise_on(err, "forward")
-    LAUNCHES["forward"] += 1  # flash_fwd
+    LAUNCHES["forward"] += 1  # flash_mma_fwd (bf16) or flash_tf32_fwd (fp32)
     SHAPES[(N, S, Sk, H, k.shape[2], hd, causal, window, q.dtype)] += 1
     return o, lse
 
@@ -218,7 +220,7 @@ def _square_backward(q, k, v, o, lse, do, causal: bool, window: int):
             N, S, H, k.shape[2], hd, int(causal), window, _scale(hd),
             int(q.dtype == torch.bfloat16), stream)
     _raise_on(err, "backward")
-    LAUNCHES["backward"] += 2  # flash_bwd_dq, then flash_bwd_dkdv
+    LAUNCHES["backward"] += 2  # the dQ kernel, then the dK/dV kernel
     BACKWARD_SHAPES[(N, S, S, H, k.shape[2], hd, causal, window, q.dtype)] += 2
     return dq, dk, dv
 

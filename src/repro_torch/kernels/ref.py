@@ -239,22 +239,49 @@ def tf32_rna(x: torch.Tensor) -> torch.Tensor:
     return ((bits & -0x80000000) | mag).view(torch.float32)
 
 
-def split_tf32_matmul(a: torch.Tensor, b: torch.Tensor, products: int = 3) -> torch.Tensor:
-    """``a (M, K) @ b (K, N)`` in fp32 as K5's kernels (``csrc/mlstm_chunk.cu``)
-    take it on the tensor cores (test-only). Each operand is split into big =
-    tf32(x) and small = tf32(x - big). Per k-step of 8, the products small.big
-    + big.small + big.big (``products=3``), or big.big alone (``products=1``,
-    one TF32 product), are summed exactly, rounded once to fp32 and added to
-    the fp32 running sum with one rounding."""
+def _round_toward_zero(x: torch.Tensor) -> torch.Tensor:
+    """float64 ``x`` to fp32, rounded toward zero (test-only)."""
+    f = x.float()
+    return torch.where(f.double().abs() > x.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def split_tf32_matmul(a: torch.Tensor, b: torch.Tensor, products: int = 3,
+                      acc: torch.Tensor | None = None, group: int | None = None) -> torch.Tensor:
+    """``a (..., M, K) @ b (..., K, N)`` in fp32 as the split-TF32 kernels take
+    it on the tensor cores (test-only). Each operand is split into big =
+    tf32(x) and small = tf32(x - big). Per k-step of 8 the products are
+    small.big, big.small and big.big (``products=3``), or big.big alone
+    (``products=1``, one TF32 product), each an exact sum of 8 terms.
+
+    Without ``group`` (K5's kernels, ``csrc/mlstm_chunk.cu``) a k-step's
+    products are summed exactly, rounded once to fp32 and added to the fp32
+    running sum with one rounding. With ``group`` (K4's fp32 kernels,
+    ``csrc/flash_attention.cu``) the tensor cores add each product to their
+    fp32 fragment with one rounding, taken here toward zero (the worse of
+    the roundings they may use); the fragment starts from zero every
+    ``group`` k-steps and is then added to the running sum with one
+    round-to-nearest rounding, or, with ``group=0``, spans the whole depth
+    and is the result. The running sum starts from ``acc`` or zero."""
     a, b = a.float(), b.float()
     ab, bb = tf32_rna(a), tf32_rna(b)
     asm, bsm = tf32_rna(a - ab), tf32_rna(b - bb)
-    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
-    for k0 in range(0, a.shape[1], 8):
-        ks = slice(k0, k0 + 8)
-        step = ab[:, ks].double() @ bb[ks].double()
-        if products == 3:
-            step = (asm[:, ks].double() @ bb[ks].double()
-                    + ab[:, ks].double() @ bsm[ks].double() + step)
-        acc = (acc.double() + step.float().double()).float()
-    return acc
+    shape = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2]) + (a.shape[-2], b.shape[-1])
+    out = torch.zeros(shape, dtype=torch.float32) if acc is None else acc.float()
+    pairs = ((asm, bb), (ab, bsm), (ab, bb)) if products == 3 else ((ab, bb),)
+    K = a.shape[-1]
+    if group is None:
+        for k0 in range(0, K, 8):
+            ks = slice(k0, k0 + 8)
+            step = sum(x[..., ks].double() @ y[..., ks, :].double() for x, y in pairs)
+            out = (out.double() + step.float().double()).float()
+        return out
+    span = K if group == 0 else 8 * group
+    for g0 in range(0, K, span):
+        frag = torch.zeros(shape, dtype=torch.float32)
+        for k0 in range(g0, min(g0 + span, K), 8):
+            ks = slice(k0, k0 + 8)
+            for x, y in pairs:
+                step = x[..., ks].double() @ y[..., ks, :].double()
+                frag = _round_toward_zero(frag.double() + step)
+        out = frag if group == 0 else (out.double() + frag.double()).float()
+    return out

@@ -22,6 +22,10 @@ inputs (both sum in fp32, in other orders):
     gradient is a sum over up to S = 512 keys (or G * S queries) of
     products of fp32 sums over hd, a few ulps of the largest term each;
     bf16 2e-2 as the forward.
+  * The fp32 kernels take every product on the tensor cores in split TF32
+    (three TF32 products per fp32 one), held to the same fp32 tolerances;
+    ``test_torch_attention_split.py`` shows on the CPU that the split
+    keeps them and that one TF32 product does not.
   * K3 loss: atol 2e-4 (lse ~ log V ~ 11, summed over V in another order).
   * K3 gradient: fp32 rtol 1e-5, atol 1e-6 of the largest magnitude; bf16
     rtol 1e-2 (one bf16 rounding step, 2**-8, either way), atol 1e-6 of
@@ -557,6 +561,26 @@ def test_flash_attention_forward_cross_and_hd160_match_plain_on_card(
     for name, a, b in zip("qkv", grads, want):
         assert _close(a, b, *bwd_tol), (name, float((a.float() - b.float()).abs().max()))
     again = fa.attn_backward(q, k, v, o, lse, do, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,S,H,KV,hd", [
+    (16, 512, 15, 5, 64),     # the path's shape
+    (1, 2048, 32, 8, 160),    # pixtral-12b's heads: dQ and dK/dV in one stage, dK/dV split
+])
+def test_flash_attention_fp32_reruns_bit_identical_on_card(cuda_device, N, S, H, KV, hd):
+    """The fp32 kernels (split TF32 on the tensor cores) give the same bits
+    on a second run, forward and backward: every output element has one
+    writer and every sum a fixed order."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q, do = (torch.randn(N, S, H, hd, generator=g, device=cuda_device) for _ in "qd")
+    k, v = (torch.randn(N, S, KV, hd, generator=g, device=cuda_device) for _ in "kv")
+    o, lse = fa.attn_forward(q, k, v, causal=True)
+    o2, lse2 = fa.attn_forward(q, k, v, causal=True)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    grads = fa.attn_backward(q, k, v, o, lse, do, causal=True)
+    again = fa.attn_backward(q, k, v, o, lse, do, causal=True)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
 
 
