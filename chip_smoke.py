@@ -137,7 +137,8 @@ Phases (any failure exits non-zero and prints no result line):
      bound (three times those operations over the TF32 tensor-core rate);
      torch.profiler over ten K5 forwards and backwards (device time per call
      of each K5 kernel); then torch.profiler over two rounds of the xLSTM
-     run (device busy share, K5's and K3's shares, the top kernels), printed
+     run at 2 of its 3 clients (device busy share, K5's and K3's shares, the
+     top kernels), printed
      only. Every profile records device activity only and reads the raw
      trace.
  16. population run: the same entry point on full-width ResNet-56, 64 of
@@ -150,7 +151,7 @@ Phases (any failure exits non-zero and prints no result line):
      the round's wall; then the peak device memory. Every parameter and aux
      head must stay finite, and every round's uplink bytes must equal
      ``wire_sizes``' own count.
- 17. pairing loop run: 8 clients, 1,600 samples, ``--topology pairing
+ 17. pairing loop run: 4 clients, 800 samples, ``--topology pairing
      --exec loop --codec int8``, 3 rounds, under torch.profiler (device
      activity only): per round the hosts, K1's launches (every round must
      launch it: each single-client upload is one K1 call per leaf) and
@@ -165,9 +166,9 @@ Phases (any failure exits non-zero and prints no result line):
      card, with top-k, once with tier changes and once with every client on
      tier 0: logs must be equal; the largest difference of parameters, aux
      heads and residuals is printed, and whether they are bit-equal.
- 20. resume run: full-width ResNet-56, 10 clients, top-k: 4 rounds, then 2
-     with ``--out-ckpt`` and 4 with ``--resume``; rounds 2-3 held to the
-     uninterrupted run; the envelope's bytes, save and load seconds.
+ 20. resume run: full-width ResNet-56, 10 clients, 1,000 samples, top-k:
+     4 rounds, then 2 with ``--out-ckpt`` and 4 with ``--resume``; rounds
+     2-3 held to the uninterrupted run; the envelope's bytes, save and load seconds.
  21. async run: 10 clients, ``--engine async --n-groups 3 --codec int8``,
      3 waves a group: per merge clock, group, wall and K1 launches; then
      the resume and the async runs at ``resnet-micro`` on the card and on
@@ -225,6 +226,22 @@ Phases (any failure exits non-zero and prints no result line):
      beside the cut. Driven as 23b's steps; K4's backward must launch at
      (B, 4,096, 32/8, 160) causal bf16, and is held there against the plain
      versions a sequence at a time; timed after 23b's rows.
+ 23d. one rank of a sharded step: yi-6b's DTFL tier-4 train step at
+     train_4k on ``--devices 8`` (data 1 x model 8) at full width and all
+     32 layers (32/4 heads at hd 128, vocab 64,000), the largest batch the
+     sharded reckoning (``launch/dryrun.py::trace_sharded``: rank 0's
+     shards on a fake process group of 8) keeps under ``SHARDED_GIB``
+     (60), traced on fake CUDA tensors; then rank 0 of that group runs on
+     real tensors on the card. Its collectives move no data (each stands
+     in with rank 0's operand), so the run measures one card's compute and
+     memory, not the step's time on 8 cards. Printed: the peak allocated
+     against the reckoned peak (within 2%), the FLOPs on the card against
+     the trace's and the collective bytes by kind and axis counted on the
+     real run against the trace's (equal), the device time (profiler's
+     kernel sum, and the events' span) and its share of 989 TFLOP/s, and
+     K3's and K4's launches at their local shapes (K4 at 4/4 heads, k and
+     v repeated to the 4 local heads; K3 at the rows over 8,000 vocab
+     columns), each held against its plain versions.
 The LLM configs (after phase 14; ``LLM_RUNS``, ``LLM_ARCHS``). The
 configs keep their published widths; the depth and the client count are
 cut until one card holds the run, by a reckoning from the shapes on the
@@ -1307,7 +1324,7 @@ POPULATION_ARGV = ["--arch", "resnet-56", "--full-size", "--population", "100000
                    "--sample-size", "64", "--samples", "64", "--batch-size", "32",
                    "--exec", "chunked", "--chunk-size", "16", "--codec", "topk0.05",
                    "--rounds", "3", "--device", "cuda"]
-PAIRING_ARGV = ["--arch", "resnet-56", "--full-size", "--clients", "8", "--samples", "1600",
+PAIRING_ARGV = ["--arch", "resnet-56", "--full-size", "--clients", "4", "--samples", "800",
                 "--topology", "pairing", "--exec", "loop", "--codec", "int8", "--rounds", "3",
                 "--device", "cuda"]
 EVENTS_ARGV = ["--arch", "resnet-56", "--full-size", "--clients", "10", "--samples", "2000",
@@ -1529,7 +1546,7 @@ def phase_events_run() -> None:
               f"clients holding residuals {n_ef}")
 
 
-RESUME_ARGV = ["--arch", "resnet-56", "--full-size", "--clients", "10", "--samples", "2000",
+RESUME_ARGV = ["--arch", "resnet-56", "--full-size", "--clients", "10", "--samples", "1000",
                "--codec", "topk0.05", "--device", "cuda"]
 ASYNC_ARGV = ["--arch", "resnet-56", "--full-size", "--clients", "10", "--samples", "2000",
               "--engine", "async", "--n-groups", "3", "--rounds", "3", "--codec", "int8",
@@ -2818,6 +2835,11 @@ XLSTM_ARGV = ["--arch", "xlstm-350m", "--full-size", "--clients", "3", "--batch-
 # 320 tokens: two K5 chunks on the card (256 + 64), two of 160 in the CPU's plain form
 XLSTM_SMALL = ["--arch", "xlstm-350m", "--clients", "4", "--batch-size", "4",
                "--seq-len", "320", "--rounds", "3"]
+# the xLSTM profile's run: XLSTM_ARGV at 2 clients (the profiler's trace
+# of the sLSTM's per-position loop costs as much as the rounds it watches)
+XLSTM_PROFILE_ARGV = ["--arch", "xlstm-350m", "--full-size", "--clients", "2",
+                      "--batch-size", "4", "--seq-len", "512", "--scheduler", "dynamic",
+                      "--lr", "1e-3", "--device", "cuda"]
 
 
 def _k3_k5_counts() -> dict:
@@ -4140,6 +4162,172 @@ def phase_pixtral_train() -> dict:
     return {"err": err, "batch": batch}
 
 
+# one rank of yi-6b's DTFL train step on --devices 8, its batch the largest
+# the sharded reckoning keeps under SHARDED_GIB
+SHARDED_ARCH = "yi-6b"
+SHARDED_DEVICES = 8
+SHARDED_GIB = 60.0
+
+
+def _sharded_cut(cfg, shape, mesh) -> tuple:
+    """(layers, batch, the reckoning at them) of the sharded train step:
+    the largest batch whose trace is under SHARDED_GIB. The peak is the
+    larger of the optimizer's (fixed) and the activations' (affine in the
+    batch): the search doubles from 8 until a batch is over, then takes
+    the batch on the line through the last two, and steps down from it
+    while its trace is over. All layers, unless batch 1 is over the limit
+    (then a quarter fewer at a time)."""
+    import dataclasses
+
+    from repro_torch.launch import dryrun, steps
+
+    limit, layers, at = SHARDED_GIB * 2**30, cfg.n_layers, {}
+
+    def peak(batch: int) -> int:
+        cut = dataclasses.replace(shape, global_batch=batch)
+        built = steps.build_dtfl_train(cfg.replace(n_layers=layers), cut, mesh)
+        at[batch] = dryrun.trace_sharded(built, mesh)
+        return at[batch]["peak_bytes"]
+
+    lo, hi = 0, 8
+    while peak(hi) <= limit:
+        lo, hi = hi, 2 * hi
+    if not lo:
+        while peak(1) > limit and layers > 4:
+            layers -= max(1, layers // 4)
+            at.clear()
+        if at[1]["peak_bytes"] > limit:
+            fail(f"{SHARDED_ARCH} on {SHARDED_DEVICES} cards: one rank does not fit "
+                 f"{SHARDED_GIB:g} GiB at batch 1 and {layers} layers")
+        lo = 1
+        if hi not in at:  # traced again at the cut depth
+            peak(hi)
+    per = (at[hi]["peak_bytes"] - at[lo]["peak_bytes"]) / (hi - lo)
+    batch = lo + max(0, min(hi - lo - 1, int((limit - at[lo]["peak_bytes"]) // per)))
+    while batch > lo and (at[batch]["peak_bytes"] if batch in at else peak(batch)) > limit:
+        batch -= 1
+    print(f"[sharded] reckoned peak of one rank (GiB) by batch: "
+          + ", ".join(f"{b}: {r['peak_bytes'] / 2**30:.3f}" for b, r in sorted(at.items()))
+          + f"; batch {batch} under {SHARDED_GIB:g} GiB; "
+          + (f"{layers} of {cfg.n_layers} layers (cut: batch 1 is over the limit at all)"
+             if layers < cfg.n_layers else f"all {layers} layers"))
+    return layers, batch, at[batch]
+
+
+def phase_dryrun_sharded() -> dict:
+    """Rank 0 of yi-6b's DTFL train step on a fake group of 8 cards, at
+    ``_sharded_cut``'s batch: the fake trace's reckoning, then the same
+    step on real tensors on the card (``trace_sharded(make=...)``: weights
+    drawn N(0, 0.02), tokens uniform, Adam's state from the draw), counted
+    as the trace is, then again under the profiler and CUDA events. The
+    peak allocated must be within 2% of the reckoned peak, the FLOPs and
+    the collective bytes by kind and axis equal to the trace's, K3 and K4
+    launched both ways; every shape they launched at is held against the
+    plain versions. Returns the K3 and K4 errors."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_xent as fx
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_production_mesh
+
+    cfg, mesh = get_config(SHARDED_ARCH), make_production_mesh(SHARDED_DEVICES)
+    shape = INPUT_SHAPES["train_4k"]
+    t0 = time.perf_counter()
+    layers, batch, fake = _sharded_cut(cfg, shape, mesh)
+    trace_s = time.perf_counter() - t0
+    cut = dataclasses.replace(shape, global_batch=batch)
+    built = steps.build_dtfl_train(cfg.replace(n_layers=layers), cut, mesh)
+    print(f"[sharded] {SHARDED_ARCH}: {layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads at hd {cfg.resolved_head_dim}, vocab "
+          f"{cfg.vocab}; the DTFL tier-{steps.DEFAULT_TIER} train step at batch {batch} x "
+          f"{shape.seq_len}, mesh {'x'.join(f'{a}{n}' for a, n in zip(*mesh))}: rank 0 of a "
+          f"fake group of {mesh.size}. Its collectives move no data, so the run measures one "
+          f"card's compute and memory, not the step's time on {mesh.size} cards")
+    g = torch.Generator(device="cuda").manual_seed(23)
+
+    def make(leaf, local):
+        if leaf.is_floating_point():
+            return (torch.randn(local, generator=g, device="cuda") * 0.02).to(leaf.dtype)
+        if leaf.ndim == 0:
+            return torch.zeros((), dtype=leaf.dtype, device="cuda")
+        return torch.randint(0, cfg.vocab, local, generator=g, device="cuda", dtype=leaf.dtype)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts0 = _step_counts()
+    _clear_shapes()
+    real = dryrun.trace_sharded(built, mesh, make=make)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    launched = {k: {d: _step_counts()[k][d] - counts0[k][d] for d in counts0[k]}
+                for k in counts0}
+    shapes = {"K3": dict(fx.SHAPES), "K4": dict(fa.SHAPES), "K4 backward": dict(fa.BACKWARD_SHAPES)}
+    _record_shapes()
+    gap = peak / fake["peak_bytes"] - 1
+    if abs(gap) > 0.02:
+        fail(f"sharded {SHARDED_ARCH}: peak allocated {peak / 2**30:.3f} GiB, reckoned "
+             f"{fake['peak_bytes'] / 2**30:.3f} GiB ({100 * gap:+.2f}%)")
+    if real["flops"] != fake["flops"]:
+        fail(f"sharded {SHARDED_ARCH}: {real['flops']} FLOPs on the card, {fake['flops']} in "
+             f"the trace")
+    if (real["collectives"], real["by_axis"]) != (fake["collectives"], fake["by_axis"]):
+        fail(f"sharded {SHARDED_ARCH}: collectives {real['by_axis']} on the card, "
+             f"{fake['by_axis']} in the trace")
+    if any(launched[k][d] <= 0 for k in ("K3", "K4") for d in ("forward", "backward")):
+        fail(f"sharded {SHARDED_ARCH}: the step launched {launched}")
+    local_heads = cfg.n_heads // mesh.axis_size("model")
+    if not all(key[3] == key[4] == local_heads for key in fa.SHAPES) or not all(
+            V == cfg.padded_vocab // mesh.axis_size("model") for _, V, _ in fx.SHAPES):
+        fail(f"sharded {SHARDED_ARCH}: K3/K4 launched at {shapes}, not at the local "
+             f"{local_heads} heads and {cfg.padded_vocab // mesh.axis_size('model')} columns")
+    print(f"[sharded] peak allocated {peak / 2**30:.3f} GiB, reckoned "
+          f"{fake['peak_bytes'] / 2**30:.3f} GiB (arguments {fake['held_bytes'] / 2**30:.3f}; "
+          f"gap {100 * gap:+.2f}%); FLOPs {fake['flops']:.6g} on the card and in the trace; "
+          f"collective bytes by kind {real['collectives']} (by axis {real['by_axis']}) on the "
+          f"card and in the trace; the reckoning's traces took "
+          f"{trace_s:.1f} s; launches K3 {launched['K3']}, K4 {launched['K4']}; at "
+          f"{ {k: {str(key): n for key, n in v.items()} for k, v in shapes.items()} }")
+    del real
+    gc.collect()
+    torch.cuda.empty_cache()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def timed():
+        start.record()
+        dryrun.trace_sharded(built, mesh, make=make)
+        end.record()
+        torch.cuda.synchronize()
+
+    _, totals = _profile(timed)
+    busy = sum(t[1] for t in totals.values())
+    span = start.elapsed_time(end) / 1e3
+    print(f"[sharded] device time {1e3 * busy:.3f} ms (kernels, profiler; the events' span "
+          f"{1e3 * span:.3f} ms, the host's DTensor dispatch in it), "
+          f"{100 * fake['flops'] / busy / BF16_OPS_PER_S:.2f}% of 989 TFLOP/s on the kernel "
+          f"time, {100 * fake['flops'] / span / BF16_OPS_PER_S:.2f}% on the span; "
+          f"{fake['flops'] / 1e12:.3f} TFLOP on this card")
+    err = {f"{k}_{d}": 0.0 for k in ("flash_attention", "fused_xent")
+           for d in ("forward", "backward")}
+    g = torch.Generator(device="cuda").manual_seed(24)
+    for N, S, _, H, KV, hd, causal, window, dtype in sorted(shapes["K4"], key=str):
+        if not causal or window or dtype != torch.bfloat16:
+            fail(f"sharded {SHARDED_ARCH}: K4 launched at an unexpected {N, S, H, KV, hd}")
+        _merge_err(err, "flash_attention", *_check_k4_by_parts(
+            f"sharded {SHARDED_ARCH} rank 0", N, S, H, KV, hd, g, True))
+    for T, V, dtype in sorted(shapes["K3"], key=str):
+        _merge_err(err, "fused_xent", *_check_k3(f"sharded {SHARDED_ARCH} rank 0", T, V,
+                                                 dtype, g))
+    return err
+
+
 def phase_dryrun_times(train_batch: int, pixtral_batch: int, err: dict) -> list[dict]:
     """K4 and K3 at the dry-run steps' new shapes, timed as phase 11 times
     the path's (``_k4_times``, ``_k3_times``): K4 at (B, 4,096, 15/5, 64)
@@ -4315,6 +4503,10 @@ def main() -> None:
     pix = _phase("pixtral-12b train step", 70, phase_pixtral_train)
     for name, e in pix["err"].items():
         k34_err[name] = max(k34_err[name], e)
+    # one rank of yi-6b's sharded train step: its reckoned peak, under
+    # SHARDED_GIB, plus room
+    for name, e in _phase("sharded train step", 62, phase_dryrun_sharded).items():
+        k34_err[name] = max(k34_err[name], e)
     entry["launches"] = k1_launches
     _phase("K1 device time", 1, phase_k1_device_time, entry)
     k2_fwd, k2_bwd = _phase("K2 times", 1, phase_k2_times, *k2_err)
@@ -4330,7 +4522,7 @@ def main() -> None:
            {"K2": K2_KERNELS})
     _phase("transformer profile", 60, phase_rounds_profile, "transformer run",
            TRANSFORMER_ARGV, {"K3": K3_KERNELS, "K4": K4_KERNELS})
-    _phase("xLSTM profile", 72, phase_rounds_profile, "xLSTM run", XLSTM_ARGV,
+    _phase("xLSTM profile", 72, phase_rounds_profile, "xLSTM run", XLSTM_PROFILE_ARGV,
            {"K5": MLSTM_KERNELS, "K3": K3_KERNELS})
     _phase("LLM times and MoE profile", 63, phase_llm_times_and_moe_profile)
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 from typing import Any, Callable, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.fused_xent import fused_xent
 
@@ -34,9 +35,12 @@ def token_xent(logits: torch.Tensor, labels: torch.Tensor,
     broadcastable, e.g. a per-sample (C, B) pad mask from
     ``data/pipeline.py``) turns the mean into a weighted mean so padded
     samples contribute nothing."""
-    V = logits.shape[-1]
-    per = fused_xent(logits.reshape(-1, V).contiguous(), labels.reshape(-1))
-    per = per.reshape(labels.shape)
+    if isinstance(logits, DTensor):  # the dry-run's sharded trace: rows stay placed
+        per = fused_xent(logits, labels)
+    else:
+        V = logits.shape[-1]
+        per = fused_xent(logits.reshape(-1, V).contiguous(), labels.reshape(-1))
+        per = per.reshape(labels.shape)
     dims = tuple(range(1, per.ndim))
     if weight is None:
         return per.mean(dim=dims)

@@ -37,7 +37,9 @@ sees the kernels the card runs: each op has a fake body that allocates
 its true outputs and builds nothing, and a FLOP formula
 (:func:`forward_flops`, :func:`backward_flops`: two products of the
 (query, key) pairs the mask keeps, five in the backward). A fake trace
-moves neither ``LAUNCHES`` nor ``SHAPES``.
+moves neither ``LAUNCHES`` nor ``SHAPES``. On ``DTensor``s (the dry-run's
+sharded trace, ``launch/sharded.py``) both ops take the sharding rules
+below: the batch or the heads split, each card's kernel on its own.
 """
 from __future__ import annotations
 
@@ -48,10 +50,13 @@ import math
 import numpy as np
 import torch
 from torch._subclasses.fake_tensor import is_fake
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import nvcc
 from repro_torch.kernels.ref import attention_bwd_ref, attention_ref
+from repro_torch.sharding import placed_as
 
 LAUNCHES = {"forward": 0, "backward": 0}
 SHAPES: Counter = Counter()
@@ -262,7 +267,8 @@ def _setup_context(ctx, inputs, output):
 
 def _backward(ctx, do, _dlse):
     q, k, v, o, lse = ctx.saved_tensors
-    dq, dk, dv = _backward_op(q, k, v, o, lse, do.contiguous(), ctx.causal, ctx.window)
+    do = placed_as(do, o, contiguous=True) if isinstance(do, DTensor) else do.contiguous()
+    dq, dk, dv = _backward_op(q, k, v, o, lse, do, ctx.causal, ctx.window)
     return dq, dk, dv, None, None
 
 
@@ -317,13 +323,71 @@ def backward_workspace_bytes(q: torch.Tensor, k: torch.Tensor, *args) -> int:
     return chunk + 2 * 4 * k.numel()
 
 
+def _heads_pair(q, k) -> bool:
+    """Whether q's and k's heads may split over the same mesh axes: KV = H
+    (k and v repeated to H heads), or KV dividing every split of the mesh,
+    so that each card's query heads read its own KV heads. ``q`` is a
+    ``DTensor`` or the spec DTensor's rules see."""
+    H, KV = q.shape[2], k.shape[2]
+    mesh = q.device_mesh if isinstance(q, DTensor) else q.mesh
+    return KV == H or KV % mesh.size() == 0
+
+
+@register_sharding(torch.ops.repro_torch.flash_attention_fwd.default)
+def _forward_sharding(q, k, v, causal, window):
+    """K4's forward on ``DTensor``s, one mesh axis at a time: replicated,
+    split over the batch (N), or over the heads (q, k, v and o on dim 2,
+    lse (N, H, S) on dim 1) where they pair up (:func:`_heads_pair`). A
+    split over the sequence is not a rule (the mask reads absolute
+    positions): DTensor gathers it first."""
+    rules = [([Replicate(), Replicate()], [Replicate()] * 3 + [None, None]),
+             ([Shard(0), Shard(0)], [Shard(0)] * 3 + [None, None])]
+    if _heads_pair(q, k):
+        rules.append(([Shard(2), Shard(1)], [Shard(2)] * 3 + [None, None]))
+    return rules
+
+
+@register_sharding(torch.ops.repro_torch.flash_attention_bwd.default)
+def _backward_sharding(q, k, v, o, lse, do, causal, window):
+    """K4's backward on ``DTensor``s: the forward's rules, dQ, dK and dV
+    placed as q, k and v."""
+    rules = [([Replicate()] * 3, [Replicate()] * 6 + [None, None]),
+             ([Shard(0)] * 3, [Shard(0)] * 6 + [None, None])]
+    if _heads_pair(q, k):
+        rules.append(([Shard(2)] * 3, [Shard(2)] * 4 + [Shard(1), Shard(2), None, None]))
+    return rules
+
+
 # scratch a kernel allocates and frees inside its op, by op; a trace of
 # live bytes adds it at the op (launch/dryrun.py)
 WORKSPACE = {torch.ops.repro_torch.flash_attention_bwd: backward_workspace_bytes}
 
 
+def _sharded_inputs(q: DTensor, k: DTensor, v: DTensor) -> tuple:
+    """q, k and v placed by one of the forward's sharding rules, chosen from
+    q's placements: each mesh axis keeps q's batch or head split (the
+    heads where they pair up, and each split where its cards do not
+    outnumber its length) and gathers anything else; their local shards
+    contiguous."""
+    mesh = q.device_mesh
+
+    def cards(dim):  # DTensor drops a rule that splits a dimension over more cards than it has
+        return math.prod(mesh.size(a) for a, p in enumerate(q.placements) if p == Shard(dim))
+
+    keep = {Shard(0)} if q.shape[0] >= cards(0) else set()
+    if _heads_pair(q, k) and q.shape[2] >= cards(2):
+        keep.add(Shard(2))
+    place = tuple(p if p in keep else Replicate() for p in q.placements)
+    ref = q if tuple(q.placements) == place else q.redistribute(q.device_mesh, place)
+    return tuple(placed_as(t, ref, contiguous=True) for t in (q, k, v))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """Attention in the model's layout: q (N, Sq, H, hd), k and v
-    (N, Sk, KV, hd) -> (N, Sq, H, hd), differentiable w.r.t. q, k and v."""
+    (N, Sk, KV, hd) -> (N, Sq, H, hd), differentiable w.r.t. q, k and v.
+    ``DTensor`` inputs are first placed by one of the ops' sharding rules
+    (:func:`_sharded_inputs`)."""
+    if isinstance(q, DTensor):
+        q, k, v = _sharded_inputs(q, k, v)
     return _forward_op(q, k, v, bool(causal), int(window))[0]

@@ -29,7 +29,10 @@ The forward and the backward are registered torch ops
 sees the kernels the card runs: each op has a fake body that allocates
 its true outputs (the per-row loss and lse; dlogits like the logits) and
 builds nothing, and a FLOP formula of 0: neither kernel has a product. A
-fake trace moves neither ``LAUNCHES`` nor ``SHAPES``.
+fake trace moves neither ``LAUNCHES`` nor ``SHAPES``. On ``DTensor``s (the
+dry-run's sharded trace, ``launch/sharded.py``) the ops take the sharding
+rules below, rows split or replicated, and logits split over the vocab
+(or over rows that do not merge into one) take :class:`_ShardedXent`.
 """
 from __future__ import annotations
 
@@ -38,11 +41,15 @@ from collections import Counter
 from typing import NamedTuple
 
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch._subclasses.fake_tensor import is_fake
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import nvcc
 from repro_torch.kernels.ref import fused_xent_bwd_ref, fused_xent_ref
+from repro_torch.sharding import merges_rows
 
 LAUNCHES = {"forward": 0, "backward": 0}
 SHAPES: Counter = Counter()
@@ -258,7 +265,98 @@ def _flop_formula(*args, **kwargs) -> int:
     return 0
 
 
+@register_sharding(torch.ops.repro_torch.fused_xent_fwd.default)
+def _forward_sharding(logits, labels):
+    """K3's forward on ``DTensor``s, one mesh axis at a time: replicated or
+    split over the rows. Logits split over the vocab take
+    :class:`_ShardedXent` instead (:func:`fused_xent`)."""
+    return [([Replicate(), Replicate()], [Replicate(), Replicate()]),
+            ([Shard(0), Shard(0)], [Shard(0), Shard(0)])]
+
+
+@register_sharding(torch.ops.repro_torch.fused_xent_bwd.default)
+def _backward_sharding(logits, labels, lse, g):
+    return [([Replicate()], [Replicate()] * 4), ([Shard(0)], [Shard(0)] * 4)]
+
+
+def _vocab_offset(V: int, mesh, place, dim: int) -> int:
+    """The first vocab column of this rank's shard of logits split over
+    their vocab, dimension ``dim``."""
+    offset, coord = 0, mesh.get_coordinate()
+    for axis, p in enumerate(place):
+        if p == Shard(dim):
+            chunk = -(-V // mesh.size(axis))
+            offset += coord[axis] * chunk
+            V = max(0, min(chunk, V - coord[axis] * chunk))
+    return offset
+
+
+class _ShardedXent(torch.autograd.Function):
+    """K3 over ``DTensor`` logits (..., V) and labels (...) placed any way:
+    each card's kernel runs on its own rows and columns, as GSPMD runs the
+    JAX package's jnp cross-entropy. Rows split over any dimensions stay
+    split (the loss is placed as they are); where the vocab is split, three
+    all-reduces of a row each (the lse's max and sum, the label's logit)
+    over the vocab's axes make the rows whole. The logits are never
+    gathered, and the backward needs no collective.
+
+    Each card's labels are shifted by its columns' offset: a label outside
+    them picks 0 and has no one-hot term, in the kernel and in its plain
+    version alike."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        mesh, place, last = logits.device_mesh, tuple(logits.placements), logits.ndim - 1
+        vocab = [a for a, p in enumerate(place) if p == Shard(last)]
+        rows = tuple(Replicate() if a in vocab else p for a, p in enumerate(place))
+        x = logits.to_local()
+        V = x.shape[-1]
+        lab = labels.redistribute(mesh, rows).to_local()
+        lab = lab.reshape(-1) - _vocab_offset(logits.shape[-1], mesh, place, last)
+        x2 = x.reshape(-1, V).contiguous()
+        _, lse = _forward_op(x2, lab)
+        ok = (lab >= 0) & (lab < V)
+        picked = torch.where(ok, x2.gather(1, lab.clamp(0, V - 1).long()[:, None])[:, 0].float(),
+                             0.0)
+        m = lse
+        for a in vocab:
+            m = funcol.all_reduce(m, "max", (mesh, a))
+        total = torch.exp(lse - m)
+        for a in vocab:
+            total = funcol.all_reduce(total, "sum", (mesh, a))
+            picked = funcol.all_reduce(picked, "sum", (mesh, a))
+        lse = m + torch.log(total)
+        ctx.save_for_backward(x2, lab, lse)
+        ctx.meta = mesh, place, rows, x.shape, logits.shape, logits.stride()
+        return DTensor.from_local((lse - picked).reshape(x.shape[:-1]), mesh, rows,
+                                  run_check=False, shape=labels.shape,
+                                  stride=torch.empty(labels.shape, device="meta").stride())
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, lab, lse = ctx.saved_tensors
+        mesh, place, rows, local, shape, stride = ctx.meta
+        g = g.redistribute(mesh, rows).to_local().reshape(-1).float()
+        dx = _backward_op(x2, lab, lse, g).reshape(local)
+        return DTensor.from_local(dx, mesh, place, run_check=False, shape=shape,
+                                  stride=stride), None
+
+
 def fused_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Per-token cross-entropy: logits (T, V), labels (T,) -> (T,) fp32,
-    differentiable w.r.t. ``logits``."""
-    return _forward_op(logits, labels)[0]
+    differentiable w.r.t. ``logits``. ``DTensor`` logits may carry more row
+    dimensions, (..., V) with labels (...), and give the loss placed as
+    the rows: where the vocab is whole and the rows merge into one split
+    dimension, the ops run under their sharding rules; else through
+    :class:`_ShardedXent`."""
+    if not isinstance(logits, DTensor):
+        return _forward_op(logits, labels)[0]
+    if not isinstance(labels, DTensor):
+        raise TypeError("fused_xent over DTensor logits takes DTensor labels")
+    if any(p.is_partial() for p in logits.placements):
+        logits = logits.redistribute(logits.device_mesh, [
+            Replicate() if p.is_partial() else p for p in logits.placements])
+    if Shard(logits.ndim - 1) in logits.placements or not merges_rows(logits, logits.ndim - 1):
+        return _ShardedXent.apply(logits, labels)
+    V = logits.shape[-1]
+    return _forward_op(logits.reshape(-1, V), labels.reshape(-1))[0].reshape(labels.shape)

@@ -71,19 +71,29 @@ def fused_xent_ref(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Te
     ``repro/kernels/ref.py:72`` (``fused_xent_ref``) and
     ``repro/core/local_loss.py:27`` (``token_xent``'s per-token term) in the
     same op order: ``lse = logsumexp(x)`` in fp32, ``loss = lse - x[label]``;
-    lse is kept for the backward."""
+    lse is kept for the backward. A label outside [0, V) picks 0, as the
+    kernel's."""
     x = logits.float()
     lse = torch.logsumexp(x, dim=-1)
-    picked = torch.gather(x, -1, labels.long()[:, None])[:, 0]
+    lab, ok = _in_range(labels, x.shape[1])
+    picked = torch.where(ok, torch.gather(x, -1, lab[:, None])[:, 0], 0.0)
     return lse - picked, lse
+
+
+def _in_range(labels: torch.Tensor, V: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(the labels clamped into [0, V) as int64, whether each was in it)."""
+    lab = labels.long()
+    return lab.clamp(0, V - 1), (lab >= 0) & (lab < V)
 
 
 def fused_xent_bwd_ref(logits: torch.Tensor, labels: torch.Tensor, lse: torch.Tensor,
                        g: torch.Tensor) -> torch.Tensor:
     """Gradient of ``sum(g * loss)`` w.r.t. ``logits`` (T, V), in the logits'
-    dtype: ``g_t (exp(x - lse_t) - [v == label_t])``, computed in fp32."""
+    dtype: ``g_t (exp(x - lse_t) - [v == label_t])``, computed in fp32; a
+    label outside [0, V) has no one-hot term."""
     p = torch.exp(logits.float() - lse[:, None])
-    hit = torch.zeros_like(p).scatter_(1, labels.long()[:, None], 1.0)
+    lab, ok = _in_range(labels, p.shape[1])
+    hit = torch.zeros_like(p).scatter_(1, lab[:, None], ok.float()[:, None])
     return (g[:, None] * (p - hit)).to(logits.dtype)
 
 

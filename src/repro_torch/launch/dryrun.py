@@ -2,31 +2,42 @@
 cards, reckoned without a card (pair: ``repro/launch/dryrun.py:1``).
 
 The JAX package lowers and compiles each step on a simulated TPU mesh and
-reads XLA's memory and cost analyses. The port traces each step
+reads XLA's memory and cost analyses, and its HLO's collectives
+(``repro/launch/hlo_analysis.py``). The port traces each step
 (``launch/steps.py``) once on fake tensors (``FakeTensorMode``: nothing
 is allocated), through the same code the card runs, its kernels K3, K4
 and K5 as registered ops with fake bodies and FLOP formulas
 (``kernels/{fused_xent,flash_attention,mlstm_chunk}.py``), and counts:
 
-  * FLOPs, by ``torch.utils.flop_counter.FlopCounterMode`` (products
-    only: matrix products and the kernels' formulas);
+  * FLOPs (products only: matrix products and the kernels' formulas);
   * live bytes and their peak (:class:`LiveBytes`: every storage an op
     makes, held until it is freed, plus the scratch a kernel allocates
-    inside its op, ``WORKSPACE``), and the bytes every op reads and writes.
+    inside its op, ``WORKSPACE``), and the bytes every op reads and writes;
+  * on a mesh, the collectives by kind and mesh axis.
 
-The trace runs at the per-card local batch: the global batch divided over
-the data axes, when it is split (>= 16). A tensor with the shape of a
-weight, gradient or optimizer-state leaf counts at that leaf's per-card
-share under its spec (``launch/specs.py``); every other tensor (the
-activations) counts whole, so ``temp_bytes`` is an upper bound where the
-model axis would also split activations. FLOPs and bytes moved are split
-evenly over the model axis. ``argument_bytes`` and ``output_bytes`` are
-the specs' own reckoning at the global shapes (``specs.bytes_per_device``).
-The roofline takes one H100's published peaks: 989 TFLOP/s bf16, 3.35 TB/s.
+On more than one card the dense family (``SHARDED_FAMILIES``) traces one
+card's share (:func:`trace_sharded`, ``launch/sharded.py``): every
+argument a ``DTensor`` holding rank 0's shard under its spec
+(``launch/specs.py``) on a fake process group of N ranks, the global
+batch, the activations placed at the model's seams by the preset's specs
+(``models/shardctx.py``), K3 and K4 under their sharding rules. FLOPs,
+bytes and the peak are that card's local tensors', and every collective a
+redistribute issues is counted in ``hlo_analysis``'s bytes (the result's
+bytes on one card, an all-reduce twice). The roofline gains the
+collective term: each mesh axis's bytes over its link rate (``LINK_BW``).
+The other families keep the one-card trace at the per-card local batch
+(the global batch over the data axes when split, >= 16), a tensor with
+the shape of a weight, gradient or optimizer-state leaf counted at its
+per-card share, every activation whole (an upper bound), FLOPs and bytes
+moved split evenly over the model axis, and ``"collectives": null``.
+``argument_bytes`` and ``output_bytes`` are the specs' own reckoning at
+the global shapes (``specs.bytes_per_device``). The roofline takes one
+H100's published peaks: 989 TFLOP/s bf16, 3.35 TB/s.
 
-Not ported: ``hlo_analysis.py`` (it parses XLA's HLO text) and the
-collective bytes it counts; the TPU meshes (``--devices N`` replaces
-``--multi-pod``, ``launch/mesh.py``). No collective runs.
+Not ported: the TPU meshes (``--devices N`` replaces ``--multi-pod``,
+``launch/mesh.py``) and ``hlo_analysis.py``'s HLO parser (the port counts
+its collectives at dispatch). No collective runs: the fake group moves no
+data.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k
@@ -48,11 +59,14 @@ import traceback
 import weakref
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import ASSIGNED_ARCHS, INPUT_SHAPES, get_config
 from repro_torch.kernels import flash_attention, mlstm_chunk
+from repro_torch.launch import sharded
 from repro_torch.launch import specs as S
 from repro_torch.launch import steps as step_lib
 from repro_torch.launch.mesh import Mesh, make_production_mesh
@@ -64,6 +78,31 @@ OUT_DIR = "experiments/dryrun_torch"
 PEAK_FLOPS = 989e12        # one H100 SXM, bf16 dense (NVIDIA's data sheet)
 HBM_BW = 3.35e12           # its device memory rate, bytes/s
 WORKSPACE = {**flash_attention.WORKSPACE, **mlstm_chunk.WORKSPACE}
+# the collective term's link rates, bytes/s one way, by mesh axis: the
+# model axis (at most 8 cards, one HGX H100 node) over NVLink 4, 900 GB/s
+# both ways a card; the data axis across nodes over one 400 Gb/s NDR
+# InfiniBand link a card
+LINK_BW = {"model": 450e9, "data": 50e9}
+# the families whose steps trace on DTensors over a mesh of more than one card
+SHARDED_FAMILIES = ("dense",)
+# a one-card record's notes: at one card the trace runs on plain tensors,
+# which ``constrain`` leaves as they are, so the record's numbers stay what
+# they were before the sharded trace
+ONE_CARD_NOTES = {
+    "temp_bytes_note": "traced peak over the arguments at the local batch; an upper "
+                       "bound where the model axis would also split activations",
+    "preset_note": "activation presets are not reckoned at one card: its trace runs on "
+                   "plain tensors, which constrain leaves as they are",
+}
+UNSHARDED_NOTES = {
+    "temp_bytes_note": ONE_CARD_NOTES["temp_bytes_note"],
+    "preset_note": "activation presets are not reckoned for this family: its trace runs "
+                   "on plain tensors, and a plain tensor is placed nowhere",
+}
+SHARDED_NOTES = {
+    "temp_bytes_note": "traced peak over the arguments of one card: rank 0's shards of "
+                       "every tensor, activations placed by the preset's specs",
+}
 
 
 def model_flops(cfg, shape) -> float:
@@ -144,6 +183,8 @@ class LiveBytes(TorchDispatchMode):
         return n / share if share else n / self.split
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented  # DTensor's dispatch hands its local ops back
         out = func(*args, **(kwargs or {}))
         if _is_view(func):
             return out
@@ -197,6 +238,34 @@ def trace_step(built: dict, mesh: Mesh) -> dict:
             "held_bytes": mem.start, "hbm_bytes": mem.moved}
 
 
+def trace_sharded(built: dict, mesh: Mesh, make=None) -> dict:
+    """One call of a built step (global shapes) on one card of ``mesh``:
+    its arguments as ``DTensor``s holding rank 0's shards on a fake
+    process group (``launch/sharded.py``), counted beneath DTensor's
+    dispatch: FLOPs, the peak of live bytes, the bytes live at the start
+    and the bytes moved, all of that card's local tensors, and the
+    collectives by kind and mesh axis. The trace runs in ``built``'s fake
+    mode; with ``make`` (``sharded.distribute``'s) the shards are real
+    tensors and the step runs on them."""
+    mode = None if make else built["mode"]
+    with sharded.fake_mesh(mesh) as dmesh:
+        with mode or contextlib.nullcontext():
+            args = sharded.distribute(built["args"], built["in_specs"], dmesh, make)
+        held = sharded.locals_of(args)
+        with mode or contextlib.nullcontext(), implicit_replication(), \
+                sharded.unwatched_propagation(), activation_sharding(**built["act_specs"]):
+            with LiveBytes(held) as mem, sharded.Counts(dmesh) as counts:
+                built["fn"](*args)
+    return {"flops": counts.flops, "peak_bytes": mem.peak, "held_bytes": mem.start,
+            "hbm_bytes": mem.moved, "collectives": counts.collectives,
+            "by_axis": counts.by_axis}
+
+
+def collective_seconds(by_axis: dict) -> float:
+    """The collective term: each mesh axis's bytes over its link rate."""
+    return sum(sum(kinds.values()) / LINK_BW[axis] for axis, kinds in by_axis.items())
+
+
 def run_one(arch: str, shape_name: str, *, devices: int = 256, tier: "int | None" = None,
             step: "str | None" = None, save: bool = True, verbose: bool = True,
             preset: str = "baseline", pad_vocab: int = 0, cfg=None) -> dict:
@@ -218,8 +287,12 @@ def run_one(arch: str, shape_name: str, *, devices: int = 256, tier: "int | None
         kw["preset"] = preset
     built = builder(cfg, shape, mesh, **kw)
     local = local_shape(shape, mesh)
+    on_mesh = mesh.size > 1 and built["cfg"].family in SHARDED_FAMILIES
     t0 = time.perf_counter()
-    counted = trace_step(builder(cfg, local, mesh, **kw) if local != shape else built, mesh)
+    if on_mesh:
+        counted = trace_sharded(built, mesh)
+    else:
+        counted = trace_step(builder(cfg, local, mesh, **kw) if local != shape else built, mesh)
     trace_s = time.perf_counter() - t0
 
     arg_bytes = S.bytes_per_device(built["args"], built["in_specs"], mesh)
@@ -227,6 +300,9 @@ def run_one(arch: str, shape_name: str, *, devices: int = 256, tier: "int | None
     temp_bytes = counted["peak_bytes"] - counted["held_bytes"]
     mf = model_flops(built["cfg"], shape)
     compute_s, memory_s = counted["flops"] / PEAK_FLOPS, counted["hbm_bytes"] / HBM_BW
+    terms = {"compute_s": compute_s, "memory_s": memory_s}
+    if on_mesh:
+        terms["collective_s"] = collective_seconds(counted["by_axis"])
     rec = {
         "arch": arch,
         "shape": shape_name,
@@ -243,25 +319,31 @@ def run_one(arch: str, shape_name: str, *, devices: int = 256, tier: "int | None
             "output_bytes": out_bytes,
             "temp_bytes": temp_bytes,
             "peak_bytes": arg_bytes + temp_bytes,
-            "temp_bytes_note": "traced peak over the arguments at the local batch; an upper "
-                               "bound where the model axis would also split activations",
-            "preset_note": "activation presets are not reckoned: the port places no "
-                           "activation (models/shardctx.py is a no-op)",
+            **(SHARDED_NOTES if on_mesh else UNSHARDED_NOTES if mesh.size > 1
+               else ONE_CARD_NOTES),
         },
         "flops_per_device": counted["flops"],
         "hbm_bytes_per_device": counted["hbm_bytes"],
-        "roofline": {"compute_s": compute_s, "memory_s": memory_s,
-                     "dominant": "compute" if compute_s >= memory_s else "memory"},
+        "roofline": {**terms, "dominant": max(terms, key=terms.get)[:-2]},
         "model_flops_total": mf,
         "useful_flops_ratio": mf / mesh.size / max(counted["flops"], 1.0),
     }
+    if on_mesh:
+        rec["collective_bytes"] = sum(counted["collectives"].values())
+        rec["collectives"] = {"by_kind": counted["collectives"], "by_axis": counted["by_axis"]}
+    elif mesh.size > 1:
+        rec["collectives"] = None
+        rec["collectives_note"] = (f"not reckoned for the {built['cfg'].family} family: its "
+                                   f"layers take no DTensor yet (ROADMAP.md, Queue 1)")
     if verbose:
         print(f"[dryrun] {arch:24s} {shape_name:12s} mesh={rec['mesh']:14s} "
               f"trace={trace_s:6.1f}s args/dev={arg_bytes / 2**30:7.2f}GiB "
               f"temp/dev={temp_bytes / 2**30:7.2f}GiB flops/dev={counted['flops']:.4e} "
               f"useful={rec['useful_flops_ratio']:.4f} "
               f"t_comp={compute_s * 1e3:.4g}ms t_mem={memory_s * 1e3:.4g}ms "
-              f"dom={rec['roofline']['dominant']}")
+              + (f"coll/dev={rec['collective_bytes'] / 2**30:.4f}GiB "
+                 f"t_coll={terms['collective_s'] * 1e3:.4g}ms " if on_mesh else "")
+              + f"dom={rec['roofline']['dominant']}")
     if save:
         os.makedirs(OUT_DIR, exist_ok=True)
         tag = f"{arch}_{shape_name}_d{mesh.size}" + (f"_{step}" if step else "")

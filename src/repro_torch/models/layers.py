@@ -13,8 +13,9 @@ KV head h // G. One-token decoding (``decode_attention``,
 ``attn_decode_apply``, ``cross_attn_decode_apply``) is torch ops, as the
 JAX package's is plain ``jnp``: the decode steps launch no kernel.
 Cross-attention (``attn_apply(kv_source=)``, the encoder-decoder family)
-runs on K4 with k and v at the source's length; one device needs no
-``constrain``.
+runs on K4 with k and v at the source's length. ``constrain``
+(``models/shardctx.py``) places ``DTensor`` activations at the JAX
+package's seams and leaves plain tensors unchanged.
 """
 from __future__ import annotations
 
@@ -22,7 +23,12 @@ import math
 
 import torch
 
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.shardctx import constrain, get_setting
+from repro_torch.sharding import (even_split, flat_rows, gather_columns, gather_fsdp, pin_grad,
+                                  placed_as)
 
 Params = dict
 _NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
@@ -108,8 +114,31 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     differs from Sq only without a mask (cross-attention).
     Returns (N, Sq, H, hd) in q's dtype. Scores, softmax statistics and the
     accumulator are fp32; the probabilities are cast to v's dtype before
-    the product with v, as in ``repro/models/layers.py:150``."""
+    the product with v, as in ``repro/models/layers.py:150``.
+
+    On a sharded trace (``DTensor`` inputs) under a ``heads`` spec, k and v
+    are repeated to H heads and q, k and v are placed by it, as the JAX
+    package's head-sharded layout (``repro/models/layers.py:126-131``): K4
+    then takes local heads that pair up whether or not KV divides the model
+    axis. Without a ``heads`` spec k and v are placed by ``kv``. Plain
+    tensors keep the grouped form, unplaced."""
+    if isinstance(q, DTensor):
+        if get_setting("heads") is not None:
+            q = constrain(q, "heads")
+            k = constrain(repeat_kv(k, q.shape[2]), "heads")
+            v = constrain(repeat_kv(v, q.shape[2]), "heads")
+        else:
+            k, v = constrain(k, "kv"), constrain(v, "kv")
     return flash_attention(q, k, v, causal=causal, window=window)
+
+
+def repeat_kv(k: torch.Tensor, H: int) -> torch.Tensor:
+    """(N, S, KV, hd) -> (N, S, H, hd), KV head j repeated as heads
+    j * G ... j * G + G - 1 (``jnp.repeat(k, G, axis=2)``)."""
+    N, S, KV, hd = k.shape
+    if KV == H:
+        return k
+    return k[:, :, :, None].expand(N, S, KV, H // KV, hd).reshape(N, S, H, hd).contiguous()
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -121,25 +150,76 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     into the cache. Under ``ring`` the cache is a ring buffer of the last W
     positions (slot ``pos % W``), else slot i holds position i. Scores are
     fp32 products of the inputs, the probabilities cast to v's dtype
-    before the product with v."""
+    before the product with v. The two products are batched over (N KV),
+    with the window a dimension of its own.
+
+    On ``DTensor``s (a sharded trace) q is first placed as the caches
+    (:func:`_decode_layout`), and the output is split over heads rather
+    than the head dim, so that (H, hd) merge into the output projection's
+    rows without a strided split."""
     N, _, H, hd = q.shape
     W, KV = k_cache.shape[1], k_cache.shape[2]
-    qg = q.reshape(N, 1, KV, H // KV, hd).float()
-    s = torch.einsum("nqkgd,nskd->nkgqs", qg, k_cache.float()) * (1.0 / math.sqrt(hd))
-    slots = torch.arange(W, device=q.device)
-    # a ring holds pos + 1 live slots before it wraps, and all W after
-    valid = slots <= (torch.clamp_max(pos, W - 1) if ring else pos)
-    s = torch.where(valid, s, _NEG_INF)
+    if isinstance(q, DTensor):
+        q, k_cache, v_cache = _decode_layout(q, k_cache, v_cache)
+
+    def lead(t):  # (N, KV, a, b) -> (N KV, a, b); one row selected, not merged
+        # (DTensor's view of merged dimensions misplaces a split window)
+        return t[0] if N == 1 else t.reshape((N * KV,) + t.shape[2:])
+
+    qg = lead(q[:, 0].reshape(N, KV, H // KV, hd).float())
+    kt = lead(k_cache.float().permute(0, 2, 3, 1))
+    s = torch.bmm(qg, kt) * (1.0 / math.sqrt(hd))                        # (N KV, G, W)
+    # the mask at the scores' shape: DTensor splits a broadcast operand of
+    # ``where`` only at the output's own rank
+    s = torch.where(_valid_slots(W, pos, ring, q.device).expand(s.shape), s, _NEG_INF)
     p = torch.softmax(s, dim=-1).to(v_cache.dtype)
-    out = torch.einsum("nkgqs,nskd->nqkgd", p, v_cache)                # (N, 1, KV, G, hd)
-    return out.reshape(N, 1, H, hd)
+    vt = lead(v_cache.permute(0, 2, 1, 3))
+    out = torch.bmm(p, vt).reshape(N, 1, H, hd)
+    if isinstance(out, DTensor) and Shard(3) in out.placements:
+        heads = Shard(2) if H % out.device_mesh.size() == 0 else Replicate()
+        out = out.redistribute(out.device_mesh,
+                               [heads if p == Shard(3) else p for p in out.placements])
+    return out
+
+
+def _valid_slots(W: int, pos: torch.Tensor, ring: bool, device) -> torch.Tensor:
+    """(W,) bool: the cache slots that hold a position up to ``pos``."""
+    slots = torch.arange(W, device=device)
+    # a ring holds pos + 1 live slots before it wraps, and all W after
+    return slots <= (torch.clamp_max(pos, W - 1) if ring else pos)
+
+
+def _decode_layout(q, k_cache, v_cache):
+    """q placed as the caches are, so that one token's scores are local
+    to each card: split as their batch (dim 0) and head dim (dim 3; the
+    scores then sum over the cards), and as their KV heads (dim 2) where
+    each card's query heads read its own (KV dividing the mesh); a cache
+    split over its window keeps q whole on that axis (the softmax gathers
+    the scores). The caches' KV heads that do not pair up are gathered."""
+    mesh, KV = k_cache.device_mesh, k_cache.shape[2]
+    qp, kp = [], []
+    for p in k_cache.placements:
+        if p in (Shard(0), Shard(3)) or (p == Shard(2) and KV % mesh.size() == 0):
+            qp.append(p)
+            kp.append(p)
+        else:
+            qp.append(Replicate())
+            kp.append(p if p == Shard(1) else Replicate())
+    if tuple(kp) != tuple(k_cache.placements):
+        k_cache, v_cache = (t.redistribute(mesh, kp) for t in (k_cache, v_cache))
+    return q.redistribute(mesh, qp), k_cache, v_cache
 
 
 def client_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(C, ..., d_in) @ (C, d_in, d_out) -> (C, ..., d_out), one batched product."""
+    if isinstance(w, DTensor):
+        w = gather_fsdp(w, x, 1)
+        x = gather_columns(x, w)
+    if isinstance(x, DTensor):
+        x = flat_rows(x)
     C = x.shape[0]
     y = torch.bmm(x.reshape(C, -1, x.shape[-1]), w)
-    return y.reshape(x.shape[:-1] + (w.shape[-1],))
+    return pin_grad(y.reshape(x.shape[:-1] + (w.shape[-1],)))
 
 
 def attn_apply(x: torch.Tensor, p: Params, cfg, *, causal: bool = True,
@@ -155,16 +235,19 @@ def attn_apply(x: torch.Tensor, p: Params, cfg, *, causal: bool = True,
     xv = x.to(dt)
     src = xv if kv_source is None else kv_source.to(dt)
     Sk = src.shape[2]
-    q = client_mm(xv, p["wq"].to(dt)).reshape(C * B, S, cfg.n_heads, hd)
-    k = client_mm(src, p["wk"].to(dt)).reshape(C * B, Sk, cfg.n_kv_heads, hd)
-    v = client_mm(src, p["wv"].to(dt)).reshape(C * B, Sk, cfg.n_kv_heads, hd)
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    # (a sharded trace's views are pinned: their gradients come back placed
+    # as their values, which DTensor can view back)
+    q = pin_grad(even_split(client_mm(xv, p["wq"].to(dt)), -1, H).reshape(C * B, S, H, hd))
+    k = pin_grad(even_split(client_mm(src, p["wk"].to(dt)), -1, KV).reshape(C * B, Sk, KV, hd))
+    v = pin_grad(even_split(client_mm(src, p["wv"].to(dt)), -1, KV).reshape(C * B, Sk, KV, hd))
     if use_rope and kv_source is None:
         pos = torch.arange(S, device=x.device)
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
     w = cfg.window if window is None else window
-    out = attention(q, k, v, causal=causal and kv_source is None, window=w or 0)
-    return client_mm(out.reshape(C, B, S, -1), p["wo"].to(dt)).to(x.dtype)
+    out = even_split(attention(q, k, v, causal=causal and kv_source is None, window=w or 0), 2, H)
+    return client_mm(pin_grad(out.reshape(C, B, S, -1)), p["wo"].to(dt)).to(x.dtype)
 
 
 def attn_decode_apply(x: torch.Tensor, p: Params, cfg, cache: Params, pos: torch.Tensor, *,
@@ -179,7 +262,11 @@ def attn_decode_apply(x: torch.Tensor, p: Params, cfg, cache: Params, pos: torch
     xv = x.to(dt)
 
     def proj(w):
-        return client_mm(xv, w.to(dt)).reshape(C * B, 1, -1, hd)
+        # serve presets: the projection stays sharded as the weights, then
+        # the one-token q, k, v reshard (``repro/models/layers.py:260-268``)
+        y = client_mm(xv, w.to(dt))
+        y = even_split(y, -1, y.shape[-1] // hd).reshape(C * B, 1, -1, hd)
+        return constrain(constrain(y, "dec_qkv_pre"), "dec_qkv")
 
     q = apply_rope(proj(p["wq"]), pos.view(1), cfg.rope_theta)
     k = apply_rope(proj(p["wk"]), pos.view(1), cfg.rope_theta)
@@ -187,10 +274,37 @@ def attn_decode_apply(x: torch.Tensor, p: Params, cfg, cache: Params, pos: torch
     W = cache["k"].shape[2]
     slot = (pos % W if ring else pos).view(1)
     for name, t in (("k", k), ("v", v)):
-        cache[name].index_copy_(2, slot, t.reshape(C, B, 1, -1, hd).to(cache[name].dtype))
-    out = decode_attention(q, cache["k"].reshape((C * B,) + cache["k"].shape[2:]),
-                           cache["v"].reshape((C * B,) + cache["v"].shape[2:]), pos, ring=ring)
+        cache[name] = write_cache_slot(cache[name], slot, t.reshape(C, B, 1, -1, hd))
+    out = decode_attention(q, _client_rows(cache["k"]), _client_rows(cache["v"]), pos, ring=ring)
     return client_mm(out.reshape(C, B, 1, -1), p["wo"].to(dt)).to(x.dtype), cache
+
+
+def write_cache_slot(cache: torch.Tensor, slot: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """``t`` (C, B, 1, KV, hd) written into slot ``slot`` (1,) of ``cache``
+    (C, B, W, KV, hd), in place; returns the cache. A ``DTensor`` cache
+    split over its window is written by a masked ``where`` instead, each
+    card writing the slot if it holds it (DTensor's in-place
+    ``index_copy_`` into a split index dimension would relabel the cache's
+    placements, not move it); into any other ``DTensor`` cache ``t`` is
+    first placed as the cache, so that the write keeps the cache where it
+    is (the op's sharding rule: ``launch/sharded.py``)."""
+    t = t.to(cache.dtype)
+    if isinstance(cache, DTensor):
+        if Shard(2) in cache.placements:
+            W = cache.shape[2]
+            hit = (torch.arange(W, device=t.device) == slot).reshape(1, 1, W, 1, 1)
+            return torch.where(hit.expand(cache.shape), t.expand(cache.shape), cache)
+        t = placed_as(t, cache)
+    return cache.index_copy_(2, slot, t)
+
+
+def _client_rows(t: torch.Tensor) -> torch.Tensor:
+    """(C, B, ...) -> (C * B, ...); one client's ``DTensor`` by selecting it
+    (DTensor's view of two merged dimensions of length 1 misplaces a split
+    of the next one)."""
+    if isinstance(t, DTensor) and t.shape[0] == 1:
+        return t[0]
+    return t.reshape((-1,) + t.shape[2:])
 
 
 def cross_attn_decode_apply(x: torch.Tensor, p: Params, cfg, xk: torch.Tensor,

@@ -42,9 +42,13 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import Params, client_mm, cdtype, dense_init, embed_init, rmsnorm
+from repro_torch.models.shardctx import constrain
+from repro_torch.sharding import gather_fsdp
 from repro_torch.tree import tree_leaves
 
 
@@ -76,10 +80,25 @@ def _project_frontend(params: Params, batch: dict) -> torch.Tensor:
 
 
 def _gather(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    """(C, B, S) tokens -> their (C, B, S, D) fp32 rows of each client's embed."""
+    """(C, B, S) tokens -> their (C, B, S, D) fp32 rows of each client's embed.
+    A ``DTensor`` table takes ``F.embedding`` a client at a time, whose
+    sharding rule reads a vocab-sharded table without gathering it: each
+    card looks up its own rows, and the rows are summed over the cards."""
     emb = params["embed"]
+    if isinstance(emb, DTensor):
+        emb = gather_fsdp(emb, tokens, 2)
+        return torch.stack([_summed(F.embedding(tokens[c].long(), emb[c]))
+                            for c in range(emb.shape[0])])
     rows = torch.arange(emb.shape[0], device=emb.device).reshape(-1, 1, 1)
     return emb[rows, tokens.long()]
+
+
+def _summed(x: DTensor) -> DTensor:
+    """A lookup into a vocab-sharded table, its masked partial rows summed
+    over the cards at once: DTensor keeps the lookup's mask for one
+    reduction of the lookup's own output, not of a view or a second use."""
+    return x.redistribute(x.device_mesh,
+                          [Replicate() if p.is_partial() else p for p in x.placements])
 
 
 def embed_tokens(params: Params, cfg, batch: dict) -> torch.Tensor:
@@ -91,7 +110,7 @@ def embed_tokens(params: Params, cfg, batch: dict) -> torch.Tensor:
         if pe.shape[2] > x.shape[2]:
             raise ValueError(f"{pe.shape[2]} patches do not fit {x.shape[2]} positions")
         x = torch.cat([pe.to(x.dtype), x[:, :, pe.shape[2]:]], dim=2)
-    return x.to(cdtype(cfg))
+    return constrain(x.to(cdtype(cfg)), "act")
 
 
 def encode(params: Params, cfg, batch: dict) -> torch.Tensor:
@@ -117,7 +136,7 @@ def lm_logits(params: Params, cfg, x: torch.Tensor) -> torch.Tensor:
     # tied configs fall back to embed^T; DTFL split training unties (the two
     # halves live on different hosts), so a split server tree has lm_head.
     w = params["lm_head"] if "lm_head" in params else params["embed"].transpose(1, 2)
-    return _vocab_mask(cfg, client_mm(h, w.to(dt)))
+    return constrain(_vocab_mask(cfg, client_mm(h, w.to(dt))), "logits")
 
 
 def forward(params: Params, cfg, batch: dict) -> tuple[torch.Tensor, "torch.Tensor | float"]:
@@ -125,7 +144,7 @@ def forward(params: Params, cfg, batch: dict) -> tuple[torch.Tensor, "torch.Tens
     enc_out = encode(params, cfg, batch) if cfg.family == "encdec" else None
     x = embed_tokens(params, cfg, batch)
     x, aux = tfm.stack_apply(x, params["blocks"], cfg, enc_out=enc_out)
-    return lm_logits(params, cfg, x), aux
+    return lm_logits(params, cfg, constrain(x, "act")), aux
 
 
 def client_forward(client_params: Params, cfg, batch: dict):
@@ -135,6 +154,7 @@ def client_forward(client_params: Params, cfg, batch: dict):
     enc_out = encode(client_params, cfg, batch) if cfg.family == "encdec" else None
     x = embed_tokens(client_params, cfg, batch)
     x, aux = tfm.stack_apply(x, client_params["blocks"], cfg, enc_out=enc_out)
+    x = constrain(x, "z")  # the DTFL client->server hand-off boundary
     return ((x, enc_out) if enc_out is not None else x), aux
 
 
@@ -144,6 +164,7 @@ def server_forward(server_params: Params, cfg, z) -> tuple[torch.Tensor, "torch.
     enc_out = None
     if cfg.family == "encdec":
         z, enc_out = z
+    z = constrain(z, "z")
     first = cfg.n_layers - tree_leaves(server_params["blocks"])[0].shape[1]  # the tail
     x, aux = tfm.stack_apply(z, server_params["blocks"], cfg, enc_out=enc_out, first_layer=first)
     return lm_logits(server_params, cfg, x), aux
@@ -163,7 +184,7 @@ def aux_head_apply(aux_params: Params, cfg, z) -> torch.Tensor:
         z, _ = z
     dt = cdtype(cfg)
     h = rmsnorm(z, aux_params["ln"], cfg.norm_eps).to(dt)
-    return _vocab_mask(cfg, client_mm(h, aux_params["proj"].to(dt)))
+    return constrain(_vocab_mask(cfg, client_mm(h, aux_params["proj"].to(dt))), "logits")
 
 
 def count_params_analytic(cfg, active_only: bool = False) -> int:

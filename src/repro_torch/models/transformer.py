@@ -34,6 +34,8 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (Params, attn_apply, attn_decode_apply,
                                        attn_param_init, cdtype, cross_attn_decode_apply,
                                        mlp_apply, mlp_param_init, per_client, rmsnorm)
+from repro_torch.models.shardctx import constrain
+from repro_torch.sharding import placed_as
 from repro_torch.tree import tree_map
 
 
@@ -179,6 +181,7 @@ def stack_apply(x: torch.Tensor, stacked: Params, cfg, *, kind: str | None = Non
             else:
                 x, layer_aux = moe_block_apply(x, bp, cfg)
                 aux = aux + layer_aux
+            x = constrain(x, "act")  # the carry's layout, every layer
         return x, aux
     flags = slstm_flags(stacked, cfg, first_layer)
     cells = {k: stacked[k] for k in ("mlstm", "slstm")}
@@ -285,10 +288,11 @@ def stack_decode(x: torch.Tensor, stacked: Params, caches: list, cfg, pos: torch
     """One token through the stacked blocks (leaves (C, L, ...)), layer i
     with ``caches[i]``. Returns (x, the new caches, the summed MoE loss).
     It reads nothing back from the device, so a CUDA graph can capture it."""
-    new, aux = [], 0.0
+    new, aux, layout = [], 0.0, x
     for layer, cache in enumerate(caches):
         bp = tree_map(lambda t: t[:, layer], stacked)
         x, cache, layer_aux = block_decode(x, bp, cache, cfg, pos, ring=ring)
+        x = placed_as(x, layout)  # a sharded trace keeps the token's layout, layer to layer
         new.append(cache)
         aux = aux + layer_aux
     return x, new, aux

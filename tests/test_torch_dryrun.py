@@ -153,6 +153,14 @@ def test_production_meshes():
 
 
 def test_shardctx_places_nothing():
+    """A plain tensor passes ``constrain`` unchanged, in a context or not; a
+    ``DTensor`` is redistributed to the context's spec (over its trailing
+    dimensions, a leading client axis replicated), and left as it is
+    without one."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.launch import sharded
+
     x = torch.ones(3)
     assert shardctx.constrain(x, "act") is x
     assert shardctx.get_setting("q_chunk") is None
@@ -160,6 +168,15 @@ def test_shardctx_places_nothing():
         assert shardctx.constrain(x, "act") is x
         assert shardctx.get_setting("q_chunk") == 512
     assert shardctx.get_setting("q_chunk") is None
+    with sharded.fake_mesh(Mesh(("data", "model"), (2, 4))) as dmesh, FakeTensorMode():
+        d, = sharded.distribute([torch.empty(1, 16, 8, 64, device="meta")],
+                                [("data", None, None)], dmesh)
+        assert shardctx.constrain(d, "act") is d
+        with shardctx.activation_sharding(act=("data", None, "model")):
+            y = shardctx.constrain(d, "act")
+        assert isinstance(y, DTensor) and tuple(y.placements) == (Shard(1), Shard(3))
+        assert tuple(y.to_local().shape) == (1, 8, 8, 16)
+        assert tuple(d.placements) == (Shard(1), Replicate())
 
 
 # ---------------------------------------------------------------------------
