@@ -9,6 +9,8 @@ Run from the repository root, with no arguments:
 (this checkout's ``src`` by default): its build report, its cases against
 the plain versions and its timed rows (``k3_alone``); run on two checkouts
 in turns within one call, it compares them on one card.
+``python3 chip_smoke.py --sharded [ARCH]`` runs phase 23d alone for ARCH
+(yi-6b by default; deepseek-moe-16b is 23e's), without its profiled rerun.
 
 Phases (any failure exits non-zero and prints no result line):
   1. device: require CUDA; print the card's name and power limit as
@@ -137,7 +139,7 @@ Phases (any failure exits non-zero and prints no result line):
      bound (three times those operations over the TF32 tensor-core rate);
      torch.profiler over ten K5 forwards and backwards (device time per call
      of each K5 kernel); then torch.profiler over two rounds of the xLSTM
-     run at 2 of its 3 clients (device busy share, K5's and K3's shares, the
+     run at 1 of its 3 clients (device busy share, K5's and K3's shares, the
      top kernels), printed
      only. Every profile records device activity only and reads the raw
      trace.
@@ -151,7 +153,7 @@ Phases (any failure exits non-zero and prints no result line):
      the round's wall; then the peak device memory. Every parameter and aux
      head must stay finite, and every round's uplink bytes must equal
      ``wire_sizes``' own count.
- 17. pairing loop run: 4 clients, 800 samples, ``--topology pairing
+ 17. pairing loop run: 4 clients, 400 samples, ``--topology pairing
      --exec loop --codec int8``, 3 rounds, under torch.profiler (device
      activity only): per round the hosts, K1's launches (every round must
      launch it: each single-client upload is one K1 call per leaf) and
@@ -242,6 +244,12 @@ Phases (any failure exits non-zero and prints no result line):
      K3's and K4's launches at their local shapes (K4 at 4/4 heads, k and
      v repeated to the 4 local heads; K3 at the rows over 8,000 vocab
      columns), each held against its plain versions.
+ 23e. the same for deepseek-moe-16b's DTFL train step (64 routed experts,
+     8 a card on the model axis, top-6, 2 shared; 16/16 heads at hd 128,
+     vocab 102,400), at full width, its depth and batch cut as 23d's, no
+     profiled rerun: the expert queues' all-to-alls on the model axis must
+     be among the collectives counted on the real run, equal to the
+     trace's.
 The LLM configs (after phase 14; ``LLM_RUNS``, ``LLM_ARCHS``). The
 configs keep their published widths; the depth and the client count are
 cut until one card holds the run, by a reckoning from the shapes on the
@@ -1324,7 +1332,7 @@ POPULATION_ARGV = ["--arch", "resnet-56", "--full-size", "--population", "100000
                    "--sample-size", "64", "--samples", "64", "--batch-size", "32",
                    "--exec", "chunked", "--chunk-size", "16", "--codec", "topk0.05",
                    "--rounds", "3", "--device", "cuda"]
-PAIRING_ARGV = ["--arch", "resnet-56", "--full-size", "--clients", "4", "--samples", "800",
+PAIRING_ARGV = ["--arch", "resnet-56", "--full-size", "--clients", "4", "--samples", "400",
                 "--topology", "pairing", "--exec", "loop", "--codec", "int8", "--rounds", "3",
                 "--device", "cuda"]
 EVENTS_ARGV = ["--arch", "resnet-56", "--full-size", "--clients", "10", "--samples", "2000",
@@ -2835,9 +2843,9 @@ XLSTM_ARGV = ["--arch", "xlstm-350m", "--full-size", "--clients", "3", "--batch-
 # 320 tokens: two K5 chunks on the card (256 + 64), two of 160 in the CPU's plain form
 XLSTM_SMALL = ["--arch", "xlstm-350m", "--clients", "4", "--batch-size", "4",
                "--seq-len", "320", "--rounds", "3"]
-# the xLSTM profile's run: XLSTM_ARGV at 2 clients (the profiler's trace
+# the xLSTM profile's run: XLSTM_ARGV at 1 client (the profiler's trace
 # of the sLSTM's per-position loop costs as much as the rounds it watches)
-XLSTM_PROFILE_ARGV = ["--arch", "xlstm-350m", "--full-size", "--clients", "2",
+XLSTM_PROFILE_ARGV = ["--arch", "xlstm-350m", "--full-size", "--clients", "1",
                       "--batch-size", "4", "--seq-len", "512", "--scheduler", "dynamic",
                       "--lr", "1e-3", "--device", "cuda"]
 
@@ -4162,21 +4170,23 @@ def phase_pixtral_train() -> dict:
     return {"err": err, "batch": batch}
 
 
-# one rank of yi-6b's DTFL train step on --devices 8, its batch the largest
-# the sharded reckoning keeps under SHARDED_GIB
+# one rank of a DTFL train step on --devices 8, its batch the largest the
+# sharded reckoning keeps under SHARDED_GIB: yi-6b's (23d) and
+# deepseek-moe-16b's, its experts on the model axis (23e)
 SHARDED_ARCH = "yi-6b"
+SHARDED_MOE_ARCH = "deepseek-moe-16b"
 SHARDED_DEVICES = 8
 SHARDED_GIB = 60.0
 
 
 def _sharded_cut(cfg, shape, mesh) -> tuple:
     """(layers, batch, the reckoning at them) of the sharded train step:
-    the largest batch whose trace is under SHARDED_GIB. The peak is the
-    larger of the optimizer's (fixed) and the activations' (affine in the
-    batch): the search doubles from 8 until a batch is over, then takes
+    the largest batch whose trace is under SHARDED_GIB. All layers, unless
+    batch 1 is over the limit (then a quarter fewer at a time). The peak is
+    the larger of the optimizer's (fixed) and the activations' (affine in
+    the batch): the search doubles from 8 until a batch is over, then takes
     the batch on the line through the last two, and steps down from it
-    while its trace is over. All layers, unless batch 1 is over the limit
-    (then a quarter fewer at a time)."""
+    while its trace is over. Each (depth, batch) is traced once."""
     import dataclasses
 
     from repro_torch.launch import dryrun, steps
@@ -4184,27 +4194,24 @@ def _sharded_cut(cfg, shape, mesh) -> tuple:
     limit, layers, at = SHARDED_GIB * 2**30, cfg.n_layers, {}
 
     def peak(batch: int) -> int:
-        cut = dataclasses.replace(shape, global_batch=batch)
-        built = steps.build_dtfl_train(cfg.replace(n_layers=layers), cut, mesh)
-        at[batch] = dryrun.trace_sharded(built, mesh)
+        if batch not in at:
+            cut = dataclasses.replace(shape, global_batch=batch)
+            built = steps.build_dtfl_train(cfg.replace(n_layers=layers), cut, mesh)
+            at[batch] = dryrun.trace_sharded(built, mesh)
         return at[batch]["peak_bytes"]
 
-    lo, hi = 0, 8
+    while peak(1) > limit and layers > 4:
+        layers -= max(1, layers // 4)
+        at.clear()
+    if peak(1) > limit:
+        fail(f"{cfg.name} on {SHARDED_DEVICES} cards: one rank does not fit "
+             f"{SHARDED_GIB:g} GiB at batch 1 and {layers} layers")
+    lo, hi = 1, 8
     while peak(hi) <= limit:
         lo, hi = hi, 2 * hi
-    if not lo:
-        while peak(1) > limit and layers > 4:
-            layers -= max(1, layers // 4)
-            at.clear()
-        if at[1]["peak_bytes"] > limit:
-            fail(f"{SHARDED_ARCH} on {SHARDED_DEVICES} cards: one rank does not fit "
-                 f"{SHARDED_GIB:g} GiB at batch 1 and {layers} layers")
-        lo = 1
-        if hi not in at:  # traced again at the cut depth
-            peak(hi)
     per = (at[hi]["peak_bytes"] - at[lo]["peak_bytes"]) / (hi - lo)
     batch = lo + max(0, min(hi - lo - 1, int((limit - at[lo]["peak_bytes"]) // per)))
-    while batch > lo and (at[batch]["peak_bytes"] if batch in at else peak(batch)) > limit:
+    while batch > lo and peak(batch) > limit:
         batch -= 1
     print(f"[sharded] reckoned peak of one rank (GiB) by batch: "
           + ", ".join(f"{b}: {r['peak_bytes'] / 2**30:.3f}" for b, r in sorted(at.items()))
@@ -4214,16 +4221,18 @@ def _sharded_cut(cfg, shape, mesh) -> tuple:
     return layers, batch, at[batch]
 
 
-def phase_dryrun_sharded() -> dict:
-    """Rank 0 of yi-6b's DTFL train step on a fake group of 8 cards, at
+def phase_dryrun_sharded(arch: str = SHARDED_ARCH, profile: bool = True) -> dict:
+    """Rank 0 of ``arch``'s DTFL train step on a fake group of 8 cards, at
     ``_sharded_cut``'s batch: the fake trace's reckoning, then the same
     step on real tensors on the card (``trace_sharded(make=...)``: weights
     drawn N(0, 0.02), tokens uniform, Adam's state from the draw), counted
-    as the trace is, then again under the profiler and CUDA events. The
-    peak allocated must be within 2% of the reckoned peak, the FLOPs and
-    the collective bytes by kind and axis equal to the trace's, K3 and K4
-    launched both ways; every shape they launched at is held against the
-    plain versions. Returns the K3 and K4 errors."""
+    as the trace is, then (with ``profile``) again under the profiler and
+    CUDA events. The peak allocated must be within 2% of the reckoned peak,
+    the FLOPs and the collective bytes by kind and axis equal to the
+    trace's (an MoE's with an all-to-all on the model axis: its expert
+    queues' moves), K3 and K4 launched both ways; every shape they
+    launched at is held against the plain versions. Returns the K3 and K4
+    errors."""
     import dataclasses
     import gc
 
@@ -4235,14 +4244,14 @@ def phase_dryrun_sharded() -> dict:
     from repro_torch.launch import dryrun, steps
     from repro_torch.launch.mesh import make_production_mesh
 
-    cfg, mesh = get_config(SHARDED_ARCH), make_production_mesh(SHARDED_DEVICES)
+    cfg, mesh = get_config(arch), make_production_mesh(SHARDED_DEVICES)
     shape = INPUT_SHAPES["train_4k"]
     t0 = time.perf_counter()
     layers, batch, fake = _sharded_cut(cfg, shape, mesh)
     trace_s = time.perf_counter() - t0
     cut = dataclasses.replace(shape, global_batch=batch)
     built = steps.build_dtfl_train(cfg.replace(n_layers=layers), cut, mesh)
-    print(f"[sharded] {SHARDED_ARCH}: {layers} layers, d_model {cfg.d_model}, "
+    print(f"[sharded] {arch}: {layers} layers, d_model {cfg.d_model}, "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads at hd {cfg.resolved_head_dim}, vocab "
           f"{cfg.vocab}; the DTFL tier-{steps.DEFAULT_TIER} train step at batch {batch} x "
           f"{shape.seq_len}, mesh {'x'.join(f'{a}{n}' for a, n in zip(*mesh))}: rank 0 of a "
@@ -4273,20 +4282,22 @@ def phase_dryrun_sharded() -> dict:
     _record_shapes()
     gap = peak / fake["peak_bytes"] - 1
     if abs(gap) > 0.02:
-        fail(f"sharded {SHARDED_ARCH}: peak allocated {peak / 2**30:.3f} GiB, reckoned "
+        fail(f"sharded {arch}: peak allocated {peak / 2**30:.3f} GiB, reckoned "
              f"{fake['peak_bytes'] / 2**30:.3f} GiB ({100 * gap:+.2f}%)")
     if real["flops"] != fake["flops"]:
-        fail(f"sharded {SHARDED_ARCH}: {real['flops']} FLOPs on the card, {fake['flops']} in "
+        fail(f"sharded {arch}: {real['flops']} FLOPs on the card, {fake['flops']} in "
              f"the trace")
     if (real["collectives"], real["by_axis"]) != (fake["collectives"], fake["by_axis"]):
-        fail(f"sharded {SHARDED_ARCH}: collectives {real['by_axis']} on the card, "
+        fail(f"sharded {arch}: collectives {real['by_axis']} on the card, "
              f"{fake['by_axis']} in the trace")
+    if cfg.family == "moe" and not real["by_axis"].get("model", {}).get("all-to-all"):
+        fail(f"sharded {arch}: no all-to-all on the model axis in {real['by_axis']}")
     if any(launched[k][d] <= 0 for k in ("K3", "K4") for d in ("forward", "backward")):
-        fail(f"sharded {SHARDED_ARCH}: the step launched {launched}")
+        fail(f"sharded {arch}: the step launched {launched}")
     local_heads = cfg.n_heads // mesh.axis_size("model")
     if not all(key[3] == key[4] == local_heads for key in fa.SHAPES) or not all(
             V == cfg.padded_vocab // mesh.axis_size("model") for _, V, _ in fx.SHAPES):
-        fail(f"sharded {SHARDED_ARCH}: K3/K4 launched at {shapes}, not at the local "
+        fail(f"sharded {arch}: K3/K4 launched at {shapes}, not at the local "
              f"{local_heads} heads and {cfg.padded_vocab // mesh.axis_size('model')} columns")
     print(f"[sharded] peak allocated {peak / 2**30:.3f} GiB, reckoned "
           f"{fake['peak_bytes'] / 2**30:.3f} GiB (arguments {fake['held_bytes'] / 2**30:.3f}; "
@@ -4298,6 +4309,31 @@ def phase_dryrun_sharded() -> dict:
     del real
     gc.collect()
     torch.cuda.empty_cache()
+    if profile:
+        _sharded_device_time(built, mesh, make, fake["flops"])
+
+    err = {f"{k}_{d}": 0.0 for k in ("flash_attention", "fused_xent")
+           for d in ("forward", "backward")}
+    g = torch.Generator(device="cuda").manual_seed(24)
+    for N, S, _, H, KV, hd, causal, window, dtype in sorted(shapes["K4"], key=str):
+        if not causal or window or dtype != torch.bfloat16:
+            fail(f"sharded {arch}: K4 launched at an unexpected {N, S, H, KV, hd}")
+        _merge_err(err, "flash_attention", *_check_k4_by_parts(
+            f"sharded {arch} rank 0", N, S, H, KV, hd, g, True))
+    for T, V, dtype in sorted(shapes["K3"], key=str):
+        _merge_err(err, "fused_xent", *_check_k3(f"sharded {arch} rank 0", T, V,
+                                                 dtype, g))
+    return err
+
+
+def _sharded_device_time(built: dict, mesh, make, flops: float) -> None:
+    """The sharded step once more on real tensors, under the profiler and
+    CUDA events: its device time (the kernels' sum) and the events' span,
+    each against 989 TFLOP/s."""
+    import torch
+
+    from repro_torch.launch import dryrun
+
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
     def timed():
@@ -4311,21 +4347,9 @@ def phase_dryrun_sharded() -> dict:
     span = start.elapsed_time(end) / 1e3
     print(f"[sharded] device time {1e3 * busy:.3f} ms (kernels, profiler; the events' span "
           f"{1e3 * span:.3f} ms, the host's DTensor dispatch in it), "
-          f"{100 * fake['flops'] / busy / BF16_OPS_PER_S:.2f}% of 989 TFLOP/s on the kernel "
-          f"time, {100 * fake['flops'] / span / BF16_OPS_PER_S:.2f}% on the span; "
-          f"{fake['flops'] / 1e12:.3f} TFLOP on this card")
-    err = {f"{k}_{d}": 0.0 for k in ("flash_attention", "fused_xent")
-           for d in ("forward", "backward")}
-    g = torch.Generator(device="cuda").manual_seed(24)
-    for N, S, _, H, KV, hd, causal, window, dtype in sorted(shapes["K4"], key=str):
-        if not causal or window or dtype != torch.bfloat16:
-            fail(f"sharded {SHARDED_ARCH}: K4 launched at an unexpected {N, S, H, KV, hd}")
-        _merge_err(err, "flash_attention", *_check_k4_by_parts(
-            f"sharded {SHARDED_ARCH} rank 0", N, S, H, KV, hd, g, True))
-    for T, V, dtype in sorted(shapes["K3"], key=str):
-        _merge_err(err, "fused_xent", *_check_k3(f"sharded {SHARDED_ARCH} rank 0", T, V,
-                                                 dtype, g))
-    return err
+          f"{100 * flops / busy / BF16_OPS_PER_S:.2f}% of 989 TFLOP/s on the kernel "
+          f"time, {100 * flops / span / BF16_OPS_PER_S:.2f}% on the span; "
+          f"{flops / 1e12:.3f} TFLOP on this card")
 
 
 def phase_dryrun_times(train_batch: int, pixtral_batch: int, err: dict) -> list[dict]:
@@ -4401,6 +4425,14 @@ def k3_alone(src: Path) -> None:
 def main() -> None:
     if sys.argv[1:2] == ["--k3"]:
         k3_alone(Path(sys.argv[2]) if len(sys.argv) > 2 else ROOT / "src")
+        return
+    if sys.argv[1:2] == ["--sharded"]:
+        # one sharded-step phase alone (23d's arch by default): build, run, hold
+        print(phase_device())
+        t0 = time.perf_counter()
+        arch = sys.argv[2] if len(sys.argv) > 2 else SHARDED_ARCH
+        _phase(f"sharded {arch} train step", 62, phase_dryrun_sharded, arch, False)
+        print(f"[done] the sharded phase in {time.perf_counter() - t0:.1f} s")
         return
     t0 = time.perf_counter()
     smi = phase_device()
@@ -4506,6 +4538,11 @@ def main() -> None:
     # one rank of yi-6b's sharded train step: its reckoned peak, under
     # SHARDED_GIB, plus room
     for name, e in _phase("sharded train step", 62, phase_dryrun_sharded).items():
+        k34_err[name] = max(k34_err[name], e)
+    # one rank of deepseek-moe-16b's: its experts on the model axis (no
+    # profiled rerun: 23d's stands for the sharded step's device time)
+    for name, e in _phase("sharded MoE train step", 62, phase_dryrun_sharded,
+                          SHARDED_MOE_ARCH, False).items():
         k34_err[name] = max(k34_err[name], e)
     entry["launches"] = k1_launches
     _phase("K1 device time", 1, phase_k1_device_time, entry)

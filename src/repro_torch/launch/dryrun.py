@@ -15,9 +15,10 @@ and K5 as registered ops with fake bodies and FLOP formulas
     inside its op, ``WORKSPACE``), and the bytes every op reads and writes;
   * on a mesh, the collectives by kind and mesh axis.
 
-On more than one card the dense family (``SHARDED_FAMILIES``) traces one
-card's share (:func:`trace_sharded`, ``launch/sharded.py``): every
-argument a ``DTensor`` holding rank 0's shard under its spec
+On more than one card every family but the xLSTM's (``SHARDED_FAMILIES``;
+``UNSHARDED_BLOCKERS`` says what keeps it off) traces one card's share
+(:func:`trace_sharded`, ``launch/sharded.py``): every argument a
+``DTensor`` holding rank 0's shard under its spec
 (``launch/specs.py``) on a fake process group of N ranks, the global
 batch, the activations placed at the model's seams by the preset's specs
 (``models/shardctx.py``), K3 and K4 under their sharding rules. FLOPs,
@@ -25,7 +26,7 @@ bytes and the peak are that card's local tensors', and every collective a
 redistribute issues is counted in ``hlo_analysis``'s bytes (the result's
 bytes on one card, an all-reduce twice). The roofline gains the
 collective term: each mesh axis's bytes over its link rate (``LINK_BW``).
-The other families keep the one-card trace at the per-card local batch
+The xLSTM keeps the one-card trace at the per-card local batch
 (the global batch over the data axes when split, >= 16), a tensor with
 the shape of a weight, gradient or optimizer-state leaf counted at its
 per-card share, every activation whole (an upper bound), FLOPs and bytes
@@ -84,7 +85,14 @@ WORKSPACE = {**flash_attention.WORKSPACE, **mlstm_chunk.WORKSPACE}
 # InfiniBand link a card
 LINK_BW = {"model": 450e9, "data": 50e9}
 # the families whose steps trace on DTensors over a mesh of more than one card
-SHARDED_FAMILIES = ("dense",)
+SHARDED_FAMILIES = ("dense", "moe", "vlm", "encdec", "hybrid")
+# what keeps each other family's steps off DTensors
+UNSHARDED_BLOCKERS = {
+    "ssm": "F.logsigmoid (aten.log_sigmoid_forward) has no DTensor sharding strategy "
+           "(models/ssm.py:82), the mLSTM decode's einsum reads a scalar "
+           "(aten._local_scalar_dense, models/ssm.py:117), and K5 (mlstm_chunk) has no "
+           "sharding rule",
+}
 # a one-card record's notes: at one card the trace runs on plain tensors,
 # which ``constrain`` leaves as they are, so the record's numbers stay what
 # they were before the sharded trace
@@ -127,6 +135,12 @@ def _is_view(func) -> bool:
     return _VIEWS[func]
 
 
+# the queries that return no tensor and read only a tensor's metadata
+_METADATA = {torch.ops.prim.device, torch.ops.prim.layout, torch.ops.aten.sym_size,
+             torch.ops.aten.sym_stride, torch.ops.aten.sym_numel,
+             torch.ops.aten.sym_storage_offset, torch.ops.aten.is_contiguous}
+
+
 def _tensors(tree) -> list:
     if isinstance(tree, torch.Tensor):
         return [tree]
@@ -146,8 +160,9 @@ class LiveBytes(TorchDispatchMode):
     many views share it; an op of ``WORKSPACE`` adds its scratch while it
     runs. ``shares`` maps a shape to the cards a tensor of it is split
     over; a tensor of another shape counts whole, and the bytes it moves
-    over ``split`` cards. A view moves nothing; any other op reads its
-    tensor inputs and writes its outputs (an ``empty`` writes nothing)."""
+    over ``split`` cards. A view and a metadata query (``_METADATA``) move
+    nothing; any other op reads its tensor inputs and writes its outputs
+    (an ``empty`` writes nothing)."""
 
     def __init__(self, held, shares: "dict | None" = None, split: int = 1):
         super().__init__()
@@ -186,7 +201,7 @@ class LiveBytes(TorchDispatchMode):
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented  # DTensor's dispatch hands its local ops back
         out = func(*args, **(kwargs or {}))
-        if _is_view(func):
+        if _is_view(func) or func.overloadpacket in _METADATA:
             return out
         outs = _tensors(out)
         for t in outs:
@@ -333,8 +348,10 @@ def run_one(arch: str, shape_name: str, *, devices: int = 256, tier: "int | None
         rec["collectives"] = {"by_kind": counted["collectives"], "by_axis": counted["by_axis"]}
     elif mesh.size > 1:
         rec["collectives"] = None
-        rec["collectives_note"] = (f"not reckoned for the {built['cfg'].family} family: its "
-                                   f"layers take no DTensor yet (ROADMAP.md, Queue 1)")
+        family = built["cfg"].family
+        rec["collectives_note"] = (f"not reckoned for the {family} family: its layers take no "
+                                   f"DTensor yet: {UNSHARDED_BLOCKERS[family]} (ROADMAP.md, "
+                                   f"Queue 1)")
     if verbose:
         print(f"[dryrun] {arch:24s} {shape_name:12s} mesh={rec['mesh']:14s} "
               f"trace={trace_s:6.1f}s args/dev={arg_bytes / 2**30:7.2f}GiB "

@@ -11,14 +11,17 @@ under their specs (``launch/specs.py``), each holding rank 0's shard.
 The step then runs on them as on plain tensors: DTensor's sharding rules
 split each op (K3's and K4's are their modules' own), the model's seams
 redistribute the activations to the JAX package's layouts
-(``models/shardctx.py``), and every redistribute issues the functional
-collectives a card would. :class:`Counts` watches the local ops beneath
-DTensor's dispatch: FLOPs (by ``torch.utils.flop_counter``'s formulas),
-and the collectives by kind and mesh axis, in ``hlo_analysis``'s bytes
-(the result's bytes on one card, an all-reduce twice); it stands in for
-each collective with rank 0's operand (``_mirror``), so the same step
-also runs on real tensors on one card. An op that has no sharding rule
-fails the trace; nothing is replicated behind its back.
+(``models/shardctx.py``), and every redistribute issues the collectives
+a card would: the functional ones, and DTensor's own all-to-all
+(``_dtensor.shard_dim_alltoall``, a move from one split to another on
+one mesh axis). :class:`Counts` watches the local ops beneath DTensor's
+dispatch: FLOPs (by ``torch.utils.flop_counter``'s formulas), and the
+collectives by kind and mesh axis, in ``hlo_analysis``'s bytes (the
+result's bytes on one card, an all-reduce twice); it stands in for each
+collective with rank 0's operand (``_mirror``), so the same step also
+runs on real tensors on one card. An op that has no sharding rule fails
+the trace, and so does an op of the collectives' namespaces that is not
+counted; nothing is replicated or moved behind the count's back.
 """
 from __future__ import annotations
 
@@ -37,17 +40,22 @@ from repro_torch.launch.mesh import Mesh
 from repro_torch.sharding import placements
 from repro_torch.tree import tree_leaves, tree_unflatten
 
-# the functional collectives a redistribute issues, by hlo_analysis's kind
-# and the weight of their result's bytes
+# the collectives a redistribute issues, by hlo_analysis's kind and the
+# weight of their result's bytes: the functional ones, and DTensor's own
+# all-to-all (a Shard(i) -> Shard(j) move on one mesh axis of a card mesh)
 _c10d = torch.ops._c10d_functional
+_alltoall = torch.ops._dtensor.shard_dim_alltoall
 COLLECTIVES = {
     _c10d.all_gather_into_tensor: ("all-gather", 1),
     _c10d.all_reduce: ("all-reduce", 2),
     _c10d.reduce_scatter_tensor: ("reduce-scatter", 1),
     _c10d.all_to_all_single: ("all-to-all", 1),
+    _alltoall: ("all-to-all", 1),
 }
-# the functional ops that move nothing (by name: not every torch has both)
-_NOT_COLLECTIVES = ("wait_tensor", "_wrap_tensor_autograd")
+# the namespaces of the ops that may move data between cards, and their
+# ops that move nothing (by name: not every torch has each)
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "_dtensor")
+_NOT_COLLECTIVES = ("wait_tensor", "_wrap_tensor_autograd", "mesh_get_process_group")
 
 
 @contextlib.contextmanager
@@ -165,13 +173,20 @@ def _mirror(packet, x: torch.Tensor, rest: tuple) -> torch.Tensor:
     """A collective's result on one card as if every card held this card's
     operand: the fake group moves no data, and its outputs would be
     unwritten memory (a gathered token would index anywhere). All-gather:
-    the operand repeated over the group; all-reduce and all-to-all: the
-    operand; reduce-scatter: its first block. Each is a new tensor of the
-    collective's result shape, so a trace's live bytes see its output."""
+    the operand repeated over the group; all-reduce and all-to-all of equal
+    blocks: the operand; reduce-scatter: its first block; DTensor's
+    all-to-all (gather_dim, shard_dim, group): the first block of the
+    operand along shard_dim from each card, joined along gather_dim. Each
+    is a new tensor of the collective's result shape, so a trace's live
+    bytes see its output."""
     if packet is _c10d.all_gather_into_tensor:
         return torch.cat([x] * rest[0])
     if packet is _c10d.reduce_scatter_tensor:
         return x.chunk(rest[1])[0].clone()
+    if packet is _alltoall:
+        gather_dim, shard_dim, group = rest[:3]
+        n = dist.distributed_c10d._resolve_process_group(group).size()
+        return torch.cat([x.narrow(shard_dim, 0, x.shape[shard_dim] // n)] * n, gather_dim)
     return x.clone()
 
 
@@ -199,7 +214,7 @@ class Counts(TorchDispatchMode):
             out = _mirror(packet, args[0], args[1:])
             self._collective(packet, out, args, kwargs)
             return out
-        if func.namespace == "_c10d_functional" and packet.__name__ not in _NOT_COLLECTIVES:
+        if func.namespace in _COLLECTIVE_NAMESPACES and packet.__name__ not in _NOT_COLLECTIVES:
             raise NotImplementedError(f"the sharded trace counts no {func}")
         out = func(*args, **kwargs)
         if packet in flop_registry:

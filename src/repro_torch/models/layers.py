@@ -317,7 +317,8 @@ def cross_attn_decode_apply(x: torch.Tensor, p: Params, cfg, xk: torch.Tensor,
     hd = cfg.resolved_head_dim
     dt = cdtype(cfg)
     P = xk.shape[2]
-    q = client_mm(x.to(dt), p["wq"].to(dt)).reshape(C * B, 1, cfg.n_heads, hd)
+    q = even_split(client_mm(x.to(dt), p["wq"].to(dt)), -1, cfg.n_heads).reshape(
+        C * B, 1, cfg.n_heads, hd)
     pos = torch.full((), P - 1, dtype=torch.int64, device=x.device)
     out = decode_attention(q, xk.reshape((C * B,) + xk.shape[2:]).to(dt),
                            xv.reshape((C * B,) + xv.shape[2:]).to(dt), pos, ring=False)

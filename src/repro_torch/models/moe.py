@@ -20,15 +20,26 @@ sort, so equal probabilities go to the lower expert index first, as
 ``jax.lax.top_k`` orders them (``torch.topk`` promises no order for ties).
 The k-th choices queue behind every (k-1)-th choice of the group (GShard's
 rank order, ``_queue_positions``), so the same tokens are dropped.
+
+On ``DTensor``s (the dry-run's sharded trace) the experts sit on the model
+axis, as the JAX package's specs and GSPMD place them: the router, the
+sort, the queue positions and the one-hot tensors run on DTensor's own
+rules; after the dispatch einsum the expert queues move onto the experts'
+split (an all-to-all, ``sharding.py::on_experts``); each card's products
+take its own experts; the combine's partial sums meet the tokens' layout.
+A plain tensor takes none of these steps.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.layers import (Params, cdtype, client_mm, dense_init, mlp_apply,
                                        mlp_param_init, silu)
+from repro_torch.models.shardctx import constrain
+from repro_torch.sharding import even_split, gather_fsdp, on_experts, pin_grad, placed_as
 
 GROUP_SIZE = 512  # tokens per dispatch group (perf/memory knob)
 
@@ -89,26 +100,36 @@ def route(x: torch.Tensor, p: Params, cfg):
     assignment at a position >= ``capacity(Tg)`` is dropped."""
     C, B, S, D = x.shape
     G, Tg = group_shape(B * S)
-    logits = client_mm(x.reshape(C, B * S, D).float(), p["router"].float())
-    probs = torch.softmax(logits.reshape(C, G, Tg, -1), dim=-1)
+    logits = client_mm(pin_grad(x.reshape(C, B * S, D)).float(), p["router"].float())
+    probs = torch.softmax(pin_grad(even_split(logits, 1, G).reshape(C, G, Tg, -1)), dim=-1)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     topv, topi = vals[..., :cfg.top_k], idx[..., :cfg.top_k]
     return probs, topv, topi, _queue_positions(topi, cfg.n_experts)
 
 
 def _experts(xe: torch.Tensor, p: Params, dt: torch.dtype) -> torch.Tensor:
-    """The routed SwiGLU experts on their queues xe (C, G, E, cap, D)."""
-    h = silu(torch.einsum("cgesd,cedf->cgesf", xe, p["we1"].to(dt)))
-    h = h * torch.einsum("cgesd,cedf->cgesf", xe, p["we3"].to(dt))
-    return torch.einsum("cgesf,cefd->cgesd", h, p["we2"].to(dt))
+    """The routed SwiGLU experts on their queues xe (C, G, E, cap, D).
+
+    On ``DTensor``s, as GSPMD places them (``repro/models/moe.py:85-89``):
+    the queues move onto the experts' split (an all-to-all on the model
+    axis), the weights are gathered over their FSDP split, and each card
+    runs its own experts' products; the outputs stay on the experts'
+    split."""
+    w1, w3, w2 = (p[k].to(dt) for k in ("we1", "we3", "we2"))
+    q = on_experts(xe, w1, 2)
+    if isinstance(w1, DTensor):
+        w1, w3, w2 = gather_fsdp(w1, q, 2), gather_fsdp(w3, q, 2), gather_fsdp(w2, q, 3)
+    h = silu(torch.einsum("cgesd,cedf->cgesf", q, w1))
+    h = h * torch.einsum("cgesd,cedf->cgesf", q, w3)
+    return torch.einsum("cgesf,cefd->cgesd", h, w2)
 
 
 def _finish(y: torch.Tensor, x: torch.Tensor, p: Params, cfg, probs, topi):
     """Output (C, B, S, D) in x's dtype with the shared experts added, and
     the Switch-style load-balance loss (C,) of each client."""
-    out = y.reshape(x.shape).to(x.dtype)
-    if cfg.n_shared_experts:
-        out = out + mlp_apply(x, p["shared"], cfg)
+    out = pin_grad(y.reshape(x.shape)).to(x.dtype)
+    if cfg.n_shared_experts:  # (on DTensors its partial sums meet out's layout)
+        out = out + placed_as(mlp_apply(x, p["shared"], cfg), out)
     E = cfg.n_experts
     me = probs.mean(dim=(1, 2))                                        # (C, E)
     fe_frac = _one_hot(topi[..., 0], E).mean(dim=(1, 2))
@@ -121,6 +142,7 @@ def moe_apply(x: torch.Tensor, p: Params, cfg) -> tuple[torch.Tensor, torch.Tens
     C, B, S, D = x.shape
     G, Tg = group_shape(B * S)
     E, cap, dt = cfg.n_experts, capacity(Tg, cfg), cdtype(cfg)
+    x = constrain(x, "act")  # a partial sum (the decode's) summed once, for all its readers
     probs, topv, topi, pos = route(x, p, cfg)
 
     dispatch = torch.zeros((C, G, Tg, E, cap), device=x.device)
@@ -133,10 +155,14 @@ def moe_apply(x: torch.Tensor, p: Params, cfg) -> tuple[torch.Tensor, torch.Tens
         dispatch = dispatch + d_k
         combine = combine + d_k * topv[..., k][..., None, None]
 
-    xg = x.reshape(C, G, Tg, D).to(dt)
+    # (on DTensors tokens split over more cards than there are groups are
+    # gathered first: the decode's one group)
+    xg = pin_grad(even_split(x.reshape(C, B * S, D), 1, G).reshape(C, G, Tg, D)).to(dt)
     xe = torch.einsum("cgtes,cgtd->cgesd", dispatch.to(dt), xg)
     ye = _experts(xe, p, dt)                                            # (C, G, E, cap, D)
-    y = torch.einsum("cgtes,cgesd->cgtd", combine.to(dt), ye)
+    # on DTensors: each card combines its own experts' outputs, and the
+    # partial sums meet in the tokens' layout (a reduce-scatter, as GSPMD's)
+    y = placed_as(torch.einsum("cgtes,cgesd->cgtd", combine.to(dt), ye), xg)
     return _finish(y, x, p, cfg, probs, topi)
 
 

@@ -19,6 +19,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.mlstm_chunk import mlstm_chunk
@@ -289,17 +290,28 @@ def mamba_apply(x: torch.Tensor, p: Params, cfg) -> torch.Tensor:
     dt = cdtype(cfg)
     u = client_mm(x.to(dt), p["w_in"].to(dt))
     xs, z = torch.chunk(u, 2, dim=-1)                                  # (C, B, S, di)
-    xf = silu(_causal_conv(xs, p["conv"].to(dt))).float()
+    xf = silu(_on_shards(_causal_conv, xs, (p["conv"].to(dt), None, 2))).float()
     # .float(): fp32 products over bf16 weights too (the dry-run's serving
     # steps), as the JAX package's type promotion gives them
     Bt, Ct = torch.chunk(client_mm(xf, p["w_bc"].float()), 2, dim=-1)  # (C, B, S, N)
     pre = client_mm(xf, p["w_dt"].float())
     dt_t = softplus(pre + per_client(p["b_dt"], pre))                  # (C, B, S, di)
     A = -torch.exp(p["a_log"])                                         # (C, di, N)
+    # each input with its (rows, channels) dimensions
+    y = _on_shards(_scan, xf, (dt_t, 1, 3), (Bt, 1, None), (Ct, 1, None), (A, None, 1))
+    y = y + per_client(p["d_skip"], xf) * xf
+    y = client_mm(y.to(dt) * silu(z), p["w_out"].to(dt))
+    return y.to(x.dtype)
+
+
+def _scan(xf, dt_t, Bt, Ct, A) -> torch.Tensor:
+    """The S6 scan's outputs y (C, B, S, di) from h_0 = 0, chunk by chunk
+    (``mamba_apply``)."""
+    C, B, S, di = xf.shape
     P = min(MAMBA_CHUNK, S)
     while S % P:
         P -= 1
-    h = torch.zeros((C, B, xf.shape[-1], cfg.ssm_state), device=x.device)
+    h = torch.zeros((C, B, di, A.shape[-1]), device=xf.device)
     ys = []
     for start in range(0, S, P):
         args = [t[:, :, start:start + P] for t in (xf, dt_t, Bt, Ct)] + [h, A]
@@ -309,9 +321,34 @@ def mamba_apply(x: torch.Tensor, p: Params, cfg) -> torch.Tensor:
         else:
             h, y = _mamba_chunk(*args)
         ys.append(y)
-    y = torch.cat(ys, dim=2) + per_client(p["d_skip"], xf) * xf
-    y = client_mm(y.to(dt) * silu(z), p["w_out"].to(dt))
-    return y.to(x.dtype)
+    return torch.cat(ys, dim=2)
+
+
+def _on_shards(fn, x, *others):
+    """``fn(x, *others)``; on ``DTensor``s each card over its own shards, as
+    a shard_map would run it, for a ``fn`` that runs along the sequence
+    and on each row (B, x's dimension 1) and channel (di, dimension 3) on
+    its own (the causal conv, the scan): a split of either needs no
+    collective. ``others`` are (tensor, its rows' dimension, its channels'
+    dimension) triples (None: it has none). The inputs are first placed so
+    (a split of the sequence or a partial sum is gathered); ``fn`` then
+    runs on the local tensors, whose ops a sharded trace counts as it
+    counts any card's, without DTensor's dispatch at every op of every
+    chunk. Returns x's shape, placed as x's rows and channels."""
+    if not isinstance(x, DTensor):
+        return fn(x, *(t for t, _, _ in others))
+    mesh = x.device_mesh
+    place = tuple(p if p in (Shard(1), Shard(3)) else Replicate() for p in x.placements)
+
+    def placed(rows, chans):
+        return tuple(Shard(rows) if p == Shard(1) and rows is not None
+                     else Shard(chans) if p == Shard(3) and chans is not None else Replicate()
+                     for p in place)
+
+    local = [t.redistribute(mesh, pl).to_local(grad_placements=pl)
+             for t, pl in [(x, place)] + [(t, placed(r, c)) for t, r, c in others]]
+    return DTensor.from_local(fn(*local), mesh, place, run_check=False, shape=x.shape,
+                              stride=torch.empty(x.shape, device="meta").stride())
 
 
 def mamba_state_init(cfg, batch: int, *, lead: tuple = (), device="cpu") -> Params:

@@ -170,6 +170,9 @@ def stack_apply(x: torch.Tensor, stacked: Params, cfg, *, kind: str | None = Non
     kind = kind or block_kind(cfg)
     if kind in ("dense", "moe", "hybrid", "enc", "dec"):
         aux = 0.0
+        # the carry's layout, every layer: a layer scan's carry enters as it
+        # leaves (the encoder's projected frames are placed nowhere before)
+        x = constrain(x, "act")
         for layer in range(stacked["ln1"].shape[1]):
             bp = tree_map(lambda t: t[:, layer], stacked)
             if kind in ("dense", "enc"):
@@ -181,7 +184,7 @@ def stack_apply(x: torch.Tensor, stacked: Params, cfg, *, kind: str | None = Non
             else:
                 x, layer_aux = moe_block_apply(x, bp, cfg)
                 aux = aux + layer_aux
-            x = constrain(x, "act")  # the carry's layout, every layer
+            x = constrain(x, "act")
         return x, aux
     flags = slstm_flags(stacked, cfg, first_layer)
     cells = {k: stacked[k] for k in ("mlstm", "slstm")}

@@ -10,7 +10,8 @@ the seams DTensor places each op by its own sharding rules and cost; the
 other helpers steer it where GSPMD's choice differs or where DTensor
 cannot view a split: an FSDP weight is gathered before its product
 (:func:`gather_fsdp`), a column-parallel product takes whole input rows
-(:func:`gather_columns`), rows merge only where the split is the first of
+(:func:`gather_columns`), the MoE's expert queues move onto the
+experts' split (:func:`on_experts`), rows merge only where the split is the first of
 them (:func:`merges_rows`, :func:`flat_rows`) and heads split or merge
 only where the cards divide them (:func:`even_split`), and a view's
 gradient comes back placed as its value (:func:`pin_grad`,
@@ -55,18 +56,39 @@ def gather_fsdp(w: DTensor, x, dim: int) -> DTensor:
 
 
 def gather_columns(x, w: DTensor):
-    """``x`` gathered over each mesh axis that splits both its last
-    dimension (the product's contraction) and ``w``'s columns: a
-    column-parallel product takes whole input rows, as Megatron's and
-    GSPMD's do. Left to itself DTensor would rather move the weight onto
-    x's split and leave the product a partial sum, which the nonlinearity
-    after it must then sum whole."""
+    """``x`` gathered over each mesh axis that splits ``w``'s columns and
+    either splits x's last dimension (the product's contraction) or holds
+    x as partial sums (summed there): a column-parallel product takes
+    whole input rows, as Megatron's and GSPMD's do. Left to itself DTensor
+    would rather move the weight onto x's split, or gather it whole beside
+    x's partial sums, and leave the product a partial sum, which the
+    nonlinearity after it must then sum whole."""
     if not isinstance(x, DTensor):
         return x
     contraction, columns = Shard(x.ndim - 1), Shard(w.ndim - 1)
-    place = tuple(Replicate() if p == contraction and q == columns else p
+    place = tuple(Replicate() if (p == contraction or p.is_partial()) and q == columns else p
                   for p, q in zip(x.placements, w.placements))
     return x if place == tuple(x.placements) else x.redistribute(x.device_mesh, place)
+
+
+def on_experts(xe, w: DTensor, dim: int):
+    """The expert queues ``xe`` (..., E, cap, d) split on their expert
+    dimension ``dim`` over each mesh axis that splits the expert weight
+    ``w``'s experts (its dimension 1), as GSPMD moves them after the
+    dispatch einsum: from a split of the model width (the ``act``
+    layout's) that is one all-to-all a mesh axis, from a whole dimension
+    a slice. Each card then runs the products of its own experts only;
+    left to itself DTensor would rather gather the experts onto every
+    card. Over an axis that splits the width but not the experts (experts
+    that do not divide it), the queues are gathered whole, and every card
+    of that axis runs every expert (DTensor would split the already split
+    groups again, which it then cannot view)."""
+    if not isinstance(xe, DTensor):
+        return xe
+    width = Shard(xe.ndim - 1)
+    place = tuple(Shard(dim) if q == Shard(1) else Replicate() if p == width else p
+                  for p, q in zip(xe.placements, w.placements))
+    return xe if place == tuple(xe.placements) else xe.redistribute(xe.device_mesh, place)
 
 
 def merges_rows(x, end: int) -> bool:
@@ -126,7 +148,9 @@ def placed_as(x, like, *, contiguous: bool = False):
 
 class _PinGrad(torch.autograd.Function):
     """The identity, whose backward places the gradient as the forward's
-    value was placed (a partial sum's gradient: whole)."""
+    value was placed (a partial sum's gradient: whole), its local shard
+    contiguous (a split cut from a whole gradient is a strided view, which
+    the view's own backward cannot view)."""
 
     @staticmethod
     def forward(ctx, x):
@@ -138,7 +162,13 @@ class _PinGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         mesh, place = ctx.place
-        return g if tuple(g.placements) == place else g.redistribute(mesh, place)
+        if tuple(g.placements) != place:
+            g = g.redistribute(mesh, place)
+        local = g.to_local()
+        if local.is_contiguous():
+            return g
+        return DTensor.from_local(local.contiguous(), mesh, place, run_check=False,
+                                  shape=g.shape, stride=g.stride())
 
 
 def pin_grad(x):

@@ -7,9 +7,10 @@ before JAX starts. Each case is jitted on a (data 2, model 4) mesh of
 explicit axes) under its in- and out-shardings, compiled, and read with
 ``repro.launch.hlo_analysis.analyze``: ``{"flops", "coll"}`` per case,
 ``coll`` the collective bytes by kind (result-shape bytes per card,
-all-reduce twice).
+all-reduce twice). ``unit`` names the unit cases, ``moe`` one MoE layer,
+``<model>-<kind>`` a whole step of a reduced config of ``CONFIGS``.
 
-  JAX_PLATFORMS=cpu PYTHONPATH=src python tests/jax_hlo_collectives.py unit smollm-train ...
+  JAX_PLATFORMS=cpu PYTHONPATH=src python tests/jax_hlo_collectives.py unit moe smollm-train ...
 """
 import os
 
@@ -32,10 +33,16 @@ from repro.models.shardctx import activation_sharding  # noqa: E402
 MESH = jax.make_mesh((2, 4), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
 # the unit cases' sizes (the torch side takes them from here too)
 UNIT = dict(B=16, D=64, F=256, V=512)
+MOE = dict(B=16, S=64)
 # the reduced configs of the whole steps, and their input shapes
 CONFIGS = {
     "smollm": ("smollm-360m", {"dtype": "float32"}),
     "yi": ("yi-6b", {"n_heads": 8, "n_kv_heads": 2, "head_dim": 16, "dtype": "float32"}),
+    "dsmoe": ("deepseek-moe-16b", {"dtype": "float32"}),
+    "scout": ("llama4-scout-17b-a16e", {"dtype": "float32"}),
+    "pixtral": ("pixtral-12b", {"dtype": "float32"}),
+    "whisper": ("whisper-base", {"dtype": "float32"}),
+    "hymba": ("hymba-1.5b", {"dtype": "float32"}),
 }
 SHAPES = {
     "train": InputShape("train", 64, 16, "train"),
@@ -90,6 +97,25 @@ def unit_cases() -> dict:
     return out
 
 
+def moe_case() -> dict:
+    """One ``moe_apply`` layer of the reduced deepseek-moe-16b (4 experts,
+    top-2, 2 shared) on 16 x 64 tokens in the ``act`` layout, its
+    parameters under their specs as one layer of a stack (the specs'
+    layer axis dropped): the experts on the model axis."""
+    from repro.launch.specs import tree_pspecs
+    from repro.models.moe import moe_apply, moe_param_init
+
+    cfg = reduced("dsmoe")
+    stacked = jax.eval_shape(lambda: jax.tree.map(lambda t: t[None],
+                                                  moe_param_init(jax.random.key(0), cfg)))
+    specs = jax.tree.map(lambda s: P(*s[1:]), tree_pspecs(stacked, MESH),
+                         is_leaf=lambda s: isinstance(s, P))
+    params = jax.tree.map(lambda t: jax.ShapeDtypeStruct(t.shape[1:], t.dtype), stacked)
+    x = jax.ShapeDtypeStruct((MOE["B"], MOE["S"], cfg.d_model), jnp.float32)
+    act = P("data", None, "model")
+    return _analyse(lambda x, p: moe_apply(x, p, cfg), (x, params), (act, specs), (act, P()))
+
+
 def _per_token(logits, labels):
     """``token_xent``'s per-token term (``repro/core/local_loss.py:27``)."""
     lse = jax.nn.logsumexp(logits.astype(jnp.float32), axis=-1)
@@ -109,7 +135,8 @@ def step_case(name: str) -> dict:
 def main(argv) -> None:
     out = {}
     for name in argv:
-        out.update(unit_cases() if name == "unit" else {name: step_case(name)})
+        out.update(unit_cases() if name == "unit" else {"moe": moe_case()} if name == "moe"
+                   else {name: step_case(name)})
     print(json.dumps(out))
 
 

@@ -17,9 +17,12 @@ refuses to replace a group that exists); the port's ``index_copy_`` rule
 places the decode step's cache write as torch's own strategy does, where
 torch has one; at one card a record is what the
 port wrote before the sharded trace (a decode step's bytes as one-token
-attention now reckons them); a family without the trace writes
-``"collectives": null`` with a note; the CLI prints ``t_coll`` and
-writes the collectives by kind and axis.
+attention now reckons them, and a device query moving nothing); the
+xLSTM, the family without the trace, writes ``"collectives": null`` with
+a note naming what blocks it; DTensor's all-to-all is counted on its
+mesh axis, and an uncounted op of the collectives' namespaces fails the
+trace; the CLI prints ``t_coll`` and writes the collectives by kind and
+axis.
 """
 import contextlib
 import json
@@ -48,14 +51,30 @@ MESH = Mesh(("data", "model"), (2, 4))
 UNIT = dict(B=16, D=64, F=256, V=512)  # tests/jax_hlo_collectives.py's UNIT
 
 
+def start_jax_hlo(*cases):
+    """Start the JAX package's analysis of ``cases`` in a process of its
+    own; returns the function that waits for it and gives {case:
+    {"flops", "coll"}} (the caller traces the port's side meanwhile)."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "JAX_PLATFORMS": "cpu"}
+    proc = subprocess.Popen([sys.executable, str(ROOT / "tests" / "jax_hlo_collectives.py"),
+                             *cases], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env, cwd=ROOT)
+
+    def result() -> dict:
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            raise
+        assert proc.returncode == 0, err[-3000:]
+        return json.loads(out.strip().splitlines()[-1])
+
+    return result
+
+
 def jax_hlo(*cases) -> dict:
     """The JAX package's {case: {"flops", "coll"}} from a process of its own."""
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "JAX_PLATFORMS": "cpu"}
-    out = subprocess.run([sys.executable, str(ROOT / "tests" / "jax_hlo_collectives.py"),
-                          *cases], capture_output=True, text=True, timeout=600, env=env,
-                         cwd=ROOT)
-    assert out.returncode == 0, out.stderr[-3000:]
-    return json.loads(out.stdout.strip().splitlines()[-1])
+    return start_jax_hlo(*cases)()
 
 
 @pytest.fixture(scope="module")
@@ -127,6 +146,48 @@ def test_unit_case_flops_and_collectives_equal_jax(jax_units, name):
         want = want["coll"]
     assert got == want
     assert sum(got.values()) > 0
+
+
+def test_dtensor_all_to_all_is_counted_and_mirrored():
+    # a (16, 64) fp32 tensor split over its columns on the model axis,
+    # redistributed to a split over its rows there: DTensor's all-to-all
+    mode = FakeTensorMode()
+    with sharded.fake_mesh(MESH) as dmesh, mode:
+        d = DTensor.from_local(torch.empty(16, 16, device="meta"), dmesh,
+                               [Replicate(), Shard(1)], run_check=False, shape=(16, 64),
+                               stride=(64, 1))
+        with implicit_replication(), sharded.unwatched_propagation(), \
+                sharded.Counts(dmesh) as counts:
+            y = d.redistribute(dmesh, [Replicate(), Shard(0)])
+        assert tuple(y.placements) == (Replicate(), Shard(0))
+        assert tuple(y.to_local().shape) == (4, 64)
+    assert counts.by_axis == {"model": {"all-to-all": 4 * 64 * 4}}
+    assert counts.collectives == {"all-to-all": 4 * 64 * 4} and counts.flops == 0
+    # on real tensors (the op the redistribute issues, gather dim 1, split
+    # dim 0): the all-to-all of equal (16, 16) operands, rank 0 holding the
+    # first 4 rows of every card's block
+    x = torch.randn(16, 16, generator=torch.Generator().manual_seed(0))
+    with sharded.fake_mesh(MESH) as dmesh, sharded.Counts(dmesh) as counts:
+        local = torch.ops._dtensor.shard_dim_alltoall(x, 1, 0, dmesh.get_group(1).group_name)
+    assert torch.equal(local, torch.cat([x[:4]] * 4, dim=1))
+    assert counts.by_axis == {"model": {"all-to-all": 4 * 64 * 4}}
+
+
+def test_uncounted_collectives_fail_the_trace():
+    lib = torch.library.Library("_dtensor", "FRAGMENT")
+    lib.define("_test_moves(Tensor x, str group_name) -> Tensor")
+    lib.impl("_test_moves", lambda x, group_name: x.clone(), "CompositeExplicitAutograd")
+    x = torch.ones(4)
+    with sharded.fake_mesh(MESH) as dmesh:
+        group = dmesh.get_group(1).group_name
+        for op in (lambda: torch.ops._c10d_functional.broadcast(x, 0, group),
+                   lambda: torch.ops._dtensor._test_moves(x, group)):
+            with sharded.Counts(dmesh), pytest.raises(NotImplementedError, match="counts no"):
+                op()
+        # what moves nothing passes: the process group's lookup, a wait
+        with sharded.Counts(dmesh) as counts:
+            torch.ops._c10d_functional.wait_tensor(x)
+        assert counts.collectives == {}
 
 
 # ---------------------------------------------------------------------------
@@ -229,21 +290,24 @@ def test_index_copy_rule_places_the_cache_write_as_torch_does(cache_spec, source
 
 # reduced SmolLM-360M at one card (seq <= 128, batch <= 16, tier 1), as the
 # dry-run recorded it before the sharded trace: flops, hbm bytes, argument,
-# output, temp and peak bytes
+# output, temp and peak bytes; but the hbm bytes of train and prefill,
+# where a device query (``prim.device``) now moves nothing (they were
+# 1,461,750,568 and 273,769,496 while each query counted its tensor)
 ONE_CARD = {
-    "train_4k": (8526495744.0, 1461750568.0, 8676364, 8659988, 26445328, 35121692),
-    "prefill_32k": (2551185408.0, 273769496.0, 1189120, 16384, 10485760, 11674880),
+    "train_4k": (8526495744.0, 754960864.0, 8676364, 8659988, 26445328, 35121692),
+    "prefill_32k": (2551185408.0, 214832912.0, 1189120, 16384, 10485760, 11674880),
     "decode_32k": (20971520.0, 50292664.0, 3278152, 2113544, 2162688, 5440840),
     "long_500k": (1310720.0, 11763664.0, 1312012, 132104, 69632, 1381644),
 }
 # the decode steps' hbm, temp and peak bytes where they differ from the
 # records above: one-token attention (``models/layers.py::decode_attention``)
 # is one pair of batched products for plain tensors and ``DTensor``s alike,
-# whose ops the trace reckons, device queries included (PERF.md, open
-# questions); FLOPs and arguments are the records'
+# whose ops the trace reckons, a device query moving nothing (the hbm
+# bytes were 40,495,032 and 10,956,752 while each query counted its
+# tensor); FLOPs and arguments are the records'
 DECODE_BMM = {
-    "decode_32k": (40495032.0, 2129920, 5408072),
-    "long_500k": (10956752.0, 72704, 1384716),
+    "decode_32k": (26694240.0, 2129920, 5408072),
+    "long_500k": (2120748.0, 72704, 1384716),
 }
 ONE_CARD_KEYS = {"arch", "flops_per_device", "hbm_bytes_per_device", "local_batch", "memory",
                  "mesh", "model_flops_total", "n_devices", "preset", "roofline", "shape", "step",
@@ -275,11 +339,13 @@ def test_one_card_record_is_unchanged(monkeypatch, name):
 
 
 def test_non_dense_record_has_no_collectives(monkeypatch):
+    # the xLSTM, the one family the sharded trace does not take yet
     _small(monkeypatch, "decode_32k", seq=64)
-    cfg = get_config("deepseek-moe-16b").reduced()
-    rec = dryrun.run_one("deepseek-moe-16b", "decode_32k", devices=8, save=False,
-                         verbose=False, cfg=cfg)
-    assert rec["collectives"] is None and "moe family" in rec["collectives_note"]
+    cfg = get_config("xlstm-350m").reduced()
+    rec = dryrun.run_one("xlstm-350m", "decode_32k", devices=8, save=False, verbose=False,
+                         cfg=cfg)
+    assert rec["collectives"] is None and "ssm family" in rec["collectives_note"]
+    assert all(b in rec["collectives_note"] for b in ("logsigmoid", "ssm.py:117", "K5"))
     assert "collective_s" not in rec["roofline"] and "collective_bytes" not in rec
     assert rec["memory"]["preset_note"] == dryrun.UNSHARDED_NOTES["preset_note"]
 

@@ -9,7 +9,8 @@ axes with the vocab whole (the ops' own sharding rules); K4 with the
 batch and the heads split (KV 1 repeated to the 4 heads); and a reduced
 dense model (4 heads over 1 KV head, vocab split) through its DTFL train
 step, prefill, decode, and decode under serve_seq (the cache split over
-its window).
+its window); and a reduced MoE model (2 experts over the model axis, each
+token to both) through its train step and prefill.
 Each result, gathered, is held to the same call on plain tensors within
 5e-5 of the plain result's largest magnitude (at least 1): the sums run
 in another order, and Adam's first step turns a gradient's last bits
@@ -43,7 +44,8 @@ def four_ranks(tmp_path_factory):
     return dict(np.load(d / "out.npz"))
 
 
-GROUPS = ["xent_float32", "xent_bfloat16", "xent_rows", "attn", "train", "prefill", "decode", "decode_seq"]
+GROUPS = ["xent_float32", "xent_bfloat16", "xent_rows", "attn", "train", "prefill", "decode",
+          "decode_seq", "moe_train", "moe_prefill"]
 
 
 @pytest.mark.parametrize("group", GROUPS)

@@ -5,9 +5,10 @@ imports ``torch`` and ``repro_torch`` only, never JAX. Each rank joins a
 gloo group on a ``FileStore`` and a (data 2, model 2) CPU mesh, and runs
 on ``DTensor``s what the dry-run's sharded trace runs on fake ones: K3
 with the vocab and the rows split (and the rows alone), K4 with the batch and the heads split,
-and a reduced dense model's DTFL train step, prefill and decode (under
-the baseline specs, and decode under serve_seq too), with real
-collectives. Rank 0 writes each result beside the same call on plain
+a reduced dense model's DTFL train step, prefill and decode (under
+the baseline specs, and decode under serve_seq too), and a reduced MoE
+model's train step and prefill (its experts over the model axis), with
+real collectives. Rank 0 writes each result beside the same call on plain
 tensors, as numpy arrays, to ``out_path``.
 """
 import numpy as np
@@ -25,6 +26,18 @@ def dense_config():
     return get_config("yi-6b").reduced().replace(
         d_model=64, n_heads=4, n_kv_heads=1, head_dim=16, d_ff=128, vocab=256,
         dtype="float32")
+
+
+def moe_config():
+    """An MoE model whose 2 experts split over the model axis, each token
+    routed to both (top-2: no choice between near-equal probabilities for
+    the sums' order to flip), and whose 1,024 tokens make 2 groups, one
+    a data card."""
+    from repro_torch.configs import get_config
+
+    return get_config("deepseek-moe-16b").reduced().replace(
+        d_model=64, n_heads=4, n_kv_heads=4, head_dim=16, d_ff=64, d_ff_shared=64, vocab=256,
+        n_experts=2, top_k=2, dtype="float32")
 
 
 def check_rank(rank: int, world: int, store_path: str, out_path: str) -> None:
@@ -124,7 +137,11 @@ def _check(rank: int) -> dict:
              ("prefill", InputShape("prefill", 16, 16, "prefill"), "baseline"),
              ("decode", InputShape("decode", 16, 16, "decode"), "baseline"),
              ("decode_seq", InputShape("decode", 16, 16, "decode"), "serve_seq")]
+    # an MoE model's (the experts over model, the queues' all-to-alls)
+    cases += [("moe_train", InputShape("train", 64, 16, "train"), "baseline"),
+              ("moe_prefill", InputShape("prefill", 64, 16, "prefill"), "baseline")]
     for name, shape, preset in cases:
+        cfg = moe_config() if name.startswith("moe") else cfg
         builder = steps.builder_for(shape)
         kw = {"tier": 1} if shape.kind == "train" else {}
         if preset != "baseline":
